@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Smoke test of the torch port (regex_fpga_tpu_torch) on one CUDA card.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py [--out DIR]
+
+Phases, each printing its own lines; any failure raises and exits non-zero:
+
+1. device: needs a CUDA card; prints the card's name and power limit as
+   nvidia-smi reports them, then builds the Hopper kernels from
+   regex_fpga_tpu_torch/csrc with nvcc and prints the build time;
+2. kernels: K1 (dfa_chain, all three modes), K2 (dfa_chain_counts, single
+   and per-stream) and K3 (kgram_chain) against their plain PyTorch
+   versions on the card at the main path's shapes, bit for bit, with the
+   time of each;
+3. main path: the tokenizer and a 300-keyword Aho-Corasick matcher through
+   the port's API at a 64 MiB chunk and 65,536 lanes, each call timed as
+   the median of REPEATS runs; every result is held to the same call on
+   the CPU (the plain path) or to a host walk, and the launch counts show
+   that each kernel ran;
+4. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
+
+``--out DIR`` also writes nvcc's report and the results there.
+``--profile`` adds, after phase 3, one torch.profiler run of each API call
+(device time in copies and in kernels, and the idle share of the call's
+wall time) and the host-to-device copy of 64 MiB from pageable and from
+pinned memory. The script imports torch, numpy and the port, and nothing
+of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+MIB = 1 << 20
+SEED = 20261016
+REPEATS = 5  # timed runs per API call in phase 3; the median is reported
+
+# bench.py's synthetic text: word-like structure, so the tokenizer DFA does
+# real work
+FRAG = (b"The quick brown fox jumps over 1234 lazy dogs, it's 99.5% fine!  "
+        b"pre-split   benchmark text \xc3\xa9t\xc3\xa9 2026... ")
+
+# bench.py's keyword list for its Aho-Corasick size sweep
+WORDS = [w % i for i in range(300)
+         for w in (b"error%04d", b"warning%03d", b"GET /path%d HTTP",
+                   b"user-agent: bot%d", b"fail%dure")]
+
+KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
+    "dfa_chain": ("cuda", "regex_fpga_tpu_torch/csrc/dfa_chain.cu",
+                  "regex_fpga_tpu/ops/pallas_dfa.py:126"),
+    "dfa_chain_counts": ("cuda", "regex_fpga_tpu_torch/csrc/dfa_chain.cu",
+                         "regex_fpga_tpu/ops/pallas_dfa.py:196"),
+    "kgram_chain": ("cuda", "regex_fpga_tpu_torch/csrc/kgram_chain.cu",
+                    "regex_fpga_tpu/ops/pallas_kgram.py:65"),
+}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def wall_ms(fn, reps: int) -> list[float]:
+    """Host-clock milliseconds of ``reps`` runs of ``fn``, each ended by a
+    device synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def max_abs_err(got, want) -> int:
+    err = 0
+    for g, w in zip(got, want):
+        check((g is None) == (w is None), "output presence")
+        if g is not None:
+            check(g.shape == w.shape, f"shape {tuple(g.shape)} vs {tuple(w.shape)}")
+            d = (g.long() - w.long()).abs()
+            err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def host_walk(table, class_of, accept, data: np.ndarray, start: int):
+    """Independent reference: a per-byte Python walk. Returns per-state
+    accept-visit counts and the final state."""
+    counts = np.zeros(table.shape[1], dtype=np.int64)
+    s = start
+    for b in data.tolist():
+        if accept[s]:
+            counts[s] += 1
+        s = int(table[class_of[b], s])
+    return counts, s
+
+
+# ---------------------------------------------------------------- phase 1
+
+
+def phase_device(out_dir):
+    from regex_fpga_tpu_torch import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.device_count()} card(s), torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    info = _build.build()
+    _build.library()
+    print(f"build: nvcc {info.seconds:.2f} s, build and load "
+          f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(info.path)}",
+          flush=True)
+    if out_dir:
+        with open(os.path.join(out_dir, "nvcc_report.txt"), "w") as f:
+            f.write(info.log)
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def phase_kernels(dev, tok_tables, ac_tables):
+    """Each kernel against its plain version on the card. Returns per-kernel
+    {"max_abs_err", "ms", "plain_ms"} at the main path's shapes."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+    from regex_fpga_tpu_torch.ops import hopper_kgram as hk
+    from regex_fpga_tpu_torch.ops.kgram import build_kgram, pack_ta
+    from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
+
+    rng = np.random.default_rng(SEED)
+    # a random DFA whose (256, 1024) int32 table (1 MiB) exceeds shared memory
+    big_t = rng.integers(0, 1024, size=(256, 1024)).astype(np.int32)
+    big = tables_from_numpy(big_t, np.arange(256), rng.random(1024) < 0.2,
+                            1024, device=dev)
+    check(not hd.dfa_chain_route("finals", 256, 1024)["table_smem"],
+          "the random table takes the global-memory route")
+    nb = 65536
+    cases = [  # name, tables, steps, class dtype, block-major storage
+        ("tokenizer", tok_tables, 1024, torch.uint8, True),
+        ("aho-corasick", ac_tables, 1024, torch.int32, False),
+        ("random-global", big, 256, torch.uint8, True),
+    ]
+    errs = {name: 0 for name in KERNELS}
+    for name, t, b, dtype, block_major in cases:
+        c, s = t.table.shape
+        shape = (nb, b) if block_major else (b, nb)
+        cls = torch.as_tensor(rng.integers(0, c, size=shape, dtype=np.int64),
+                              device=dev).to(dtype)
+        cls_seq = cls.T if block_major else cls
+        ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32),
+                              device=dev)
+        route = hd.dfa_chain_route("counts", c, s, nb, 64)
+        for mode in hd.MODES:
+            e = max_abs_err(hd.dfa_chain(t.table, t.accept, cls_seq, ent, mode),
+                            hd.dfa_chain_plain(t.table, t.accept, cls_seq, ent, mode))
+            errs["dfa_chain"] = max(errs["dfa_chain"], e)
+        for streams in (None, 64):
+            e = max_abs_err(
+                hd.dfa_chain_counts(t.table, t.accept, cls_seq, ent, streams),
+                hd.dfa_chain_counts_plain(t.table, t.accept, cls_seq, ent, streams))
+            errs["dfa_chain_counts"] = max(errs["dfa_chain_counts"], e)
+        torch.cuda.synchronize()
+        print(f"kernels: {name} S={s} C={c} {nb}x{b} {str(dtype)[6:]} "
+              f"{'block' if block_major else 'time'}-major, table in "
+              f"{'shared' if route['table_smem'] else 'global'} memory: "
+              f"K1 x3 modes, K2 single and 64 streams bit-exact against "
+              f"plain (tolerance 0)", flush=True)
+
+    # K3 at the tokenizer's level-2 k-gram shape: 64 MiB of text = 2^24 steps
+    kg = build_kgram(tok_tables, levels=2)
+    kg_ta = pack_ta(torch.as_tensor(kg.table), torch.as_tensor(kg.acc_table)).to(dev)
+    ck = torch.as_tensor(rng.integers(0, kg.table.shape[0], size=(nb, 256))
+                         .astype(np.int32), device=dev)
+    ent = torch.as_tensor(rng.integers(0, kg.num_states, size=nb)
+                          .astype(np.int32), device=dev)
+    errs["kgram_chain"] = max_abs_err(hk.kgram_chain(kg_ta, ck.T, ent),
+                                      hk.kgram_chain_plain(kg_ta, ck.T, ent))
+    ac_c, ac_s = ac_tables.table.shape
+    big_cls = torch.as_tensor(rng.integers(0, ac_c, size=(4096, 256))
+                              .astype(np.int16), device=dev)
+    big_acc = torch.as_tensor(rng.integers(0, 5, size=(ac_c, ac_s))
+                              .astype(np.int32), device=dev)
+    big_ta = pack_ta(ac_tables.table, big_acc)
+    ent_ac = torch.zeros(4096, dtype=torch.int32, device=dev)
+    errs["kgram_chain"] = max(errs["kgram_chain"], max_abs_err(
+        hk.kgram_chain(big_ta, big_cls.T, ent_ac),
+        hk.kgram_chain_plain(big_ta, big_cls.T, ent_ac)))
+    torch.cuda.synchronize()
+    print(f"kernels: K3 tokenizer k=4 C_k={kg.table.shape[0]} S={kg.num_states} "
+          f"{nb}x256 int32 and AC-sized S={ac_s} (table in "
+          f"{'shared' if hk.kgram_chain_route(ac_c, ac_s)['table_smem'] else 'global'}"
+          f" memory) int16 bit-exact against plain (tolerance 0)", flush=True)
+    for name, e in errs.items():
+        check(e == 0, f"{name} differs from its plain version by {e}")
+
+    # times at the main path's shape: the tokenizer over one 64 MiB chunk
+    c, s = tok_tables.table.shape
+    cls = torch.as_tensor(rng.integers(0, c, size=(nb, 1024)).astype(np.uint8),
+                          device=dev).T
+    ent = torch.zeros(nb, dtype=torch.int32, device=dev)
+    tt, ta = tok_tables.table, tok_tables.accept
+    timing = {
+        "dfa_chain": lambda: hd.dfa_chain(tt, ta, cls, ent, "finals"),
+        "dfa_chain_counts": lambda: hd.dfa_chain_counts(tt, ta, cls, ent),
+        "kgram_chain": lambda: hk.kgram_chain(kg_ta, ck.T, ent),
+    }
+    plain = {
+        "dfa_chain": lambda: hd.dfa_chain_plain(tt, ta, cls, ent, "finals"),
+        "dfa_chain_counts": lambda: hd.dfa_chain_counts_plain(tt, ta, cls, ent),
+        "kgram_chain": lambda: hk.kgram_chain_plain(kg_ta, ck.T, ent),
+    }
+    # the same chunk through the other modes, and the other tables: the
+    # Aho-Corasick DFA (shared memory above 48 KB) and the random table
+    # (global memory)
+    ac_cls = torch.as_tensor(rng.integers(0, ac_tables.table.shape[0],
+                                          size=(nb, 1024)).astype(np.uint8),
+                             device=dev).T
+    rnd_cls = torch.as_tensor(rng.integers(0, 256, size=(nb, 1024))
+                              .astype(np.uint8), device=dev).T
+    at, aa, bt, ba = ac_tables.table, ac_tables.accept, big.table, big.accept
+    extra = {
+        "dfa_chain[full]": lambda: hd.dfa_chain(tt, ta, cls, ent, "full"),
+        "dfa_chain[mask]": lambda: hd.dfa_chain(tt, ta, cls, ent, "mask"),
+        "dfa_chain_counts[64 streams]":
+            lambda: hd.dfa_chain_counts(tt, ta, cls, ent, 64),
+        "dfa_chain[aho-corasick S=836]":
+            lambda: hd.dfa_chain(at, aa, ac_cls, ent, "finals"),
+        "dfa_chain_counts[aho-corasick S=836]":
+            lambda: hd.dfa_chain_counts(at, aa, ac_cls, ent),
+        "dfa_chain[random S=1024, global table]":
+            lambda: hd.dfa_chain(bt, ba, rnd_cls, ent, "finals"),
+        "dfa_chain_counts[random S=1024, global table]":
+            lambda: hd.dfa_chain_counts(bt, ba, rnd_cls, ent),
+    }
+    results = {}
+    for name in KERNELS:
+        ms = event_ms(timing[name], 20)
+        plain_ms = event_ms(plain[name], 2)
+        results[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
+        print(f"time: {name} {ms:.4f} ms, plain {plain_ms:.2f} ms "
+              f"({64 * MIB / ms / 1e6:.1f} GB/s of text)", flush=True)
+    for name, fn in extra.items():
+        ms = event_ms(fn, 20)
+        print(f"time: {name} {ms:.4f} ms ({64 * MIB / ms / 1e6:.1f} GB/s of text)",
+              flush=True)
+    return results
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def phase_main_path(dev):
+    """The port's API at full size. Returns the kernel launch counts and
+    the calls, as (label, zero-argument function, bytes) for the profile."""
+    from regex_fpga_tpu_torch import api
+    from regex_fpga_tpu_torch.models import CompiledDfa, build_aho_corasick
+    from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram
+
+    rng = np.random.default_rng(SEED + 1)
+    cfg = api.EngineConfig(scan_backend="device")  # chunk 64 MiB, 65536 lanes
+    check(cfg.chunk_bytes == 64 * MIB and cfg.num_blocks == 65536,
+          "default chunk and lane count")
+    text = np.frombuffer(FRAG * (64 * MIB // len(FRAG) + 1), np.uint8)[:64 * MIB]
+    noise = rng.integers(0, 256, size=64 * MIB, dtype=np.uint8)
+    batch = noise.reshape(64, MIB)
+    lens = rng.integers(1024, 2 * MIB + 1, size=64)
+    offs = rng.integers(0, 64 * MIB - 2 * MIB, size=64)
+    ragged = [np.concatenate([text[o:o + n // 2], noise[o:o + n - n // 2]])
+              for o, n in zip(offs, lens)]
+    ac = build_aho_corasick(WORDS[:300])
+    # keyword traffic for the Aho-Corasick matcher: seeded words of the
+    # synthetic text and of its keyword list, space-separated
+    vocab = FRAG.split(b" ") + WORDS[:300]
+    picks = rng.integers(0, len(vocab), size=64 * MIB // 6)
+    ac_text = np.frombuffer(b" ".join(vocab[i] for i in picks.tolist()),
+                            np.uint8)[:64 * MIB]
+    check(ac_text.size == 64 * MIB, "keyword traffic fills 64 MiB")
+
+    card = {"tok": api.compile_tokenizer(config=cfg, device=dev),
+            "ac": api.DfaMatcher(ac.dfa, cfg, device=dev)}
+    cpu = {"tok": api.compile_tokenizer(config=cfg, device="cpu"),
+           "ac": api.DfaMatcher(ac.dfa, cfg, device="cpu")}
+    t16 = text[:16 * MIB]
+    calls = [  # label, matcher, method, args, bytes
+        ("tokenizer scan counts 64 MiB", "tok", "scan", (text,), text.size),
+        ("tokenizer count (k-gram) 64 MiB", "tok", "count", (text,), text.size),
+        ("tokenizer scan positions 16 MiB", "tok", "scan_positions", (t16,),
+         t16.size),
+        ("tokenizer presplit 16 MiB", "tok", "presplit", (t16,), t16.size),
+        ("tokenizer batch 64 x 1 MiB", "tok", "scan", (batch,), batch.size),
+        ("tokenizer ragged 64 flows 1 KiB-2 MiB", "tok", "scan", (ragged,),
+         int(lens.sum())),
+        (f"aho-corasick S={card['ac'].num_states} scan counts 64 MiB", "ac",
+         "scan", (ac_text,), ac_text.size),
+    ]
+
+    def run(m, method, args):
+        if method == "scan_positions":
+            return m.scan(*args, collect_positions=True)
+        return getattr(m, method)(*args)
+
+    for launches in (hopper_dfa.LAUNCHES, hopper_kgram.LAUNCHES):
+        for k in launches:
+            launches[k] = 0
+    got = {}
+    for label, who, method, args, nbytes in calls:
+        got[label] = run(card[who], method, args)  # warm-up: lazy tables
+        ms = wall_ms(lambda: run(card[who], method, args), REPEATS)
+        med = float(np.median(ms))
+        r = got[label]
+        note = ""
+        if hasattr(r, "metrics"):
+            check(r.metrics.converged, f"{label}: converged")
+            note = f", iterations={r.metrics.iterations}, total={r.total}"
+        print(f"main: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
+              f"{REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max {max(ms):.2f})"
+              f"{note}", flush=True)
+    launches = {**hopper_dfa.LAUNCHES, **hopper_kgram.LAUNCHES}
+    print(f"main: launches {json.dumps(launches)}", flush=True)
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} launched on the main path")
+
+    # the same calls on the plain path (CPU tensors)
+    t0 = time.perf_counter()
+    for label, who, method, args, _ in calls:
+        want = run(cpu[who], method, args)
+        r = got[label]
+        if hasattr(want, "counts"):
+            check(np.array_equal(r.counts, want.counts), f"{label}: counts")
+            check(r.metrics.iterations == want.metrics.iterations,
+                  f"{label}: iterations")
+            if want.match_positions is not None:
+                for g, w in zip(r.match_positions, want.match_positions):
+                    check(np.array_equal(g, w), f"{label}: positions")
+        else:
+            check(np.array_equal(np.asarray(r), np.asarray(want)), label)
+    print(f"main: every call equals the plain path on the CPU "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # an independent host walk over a 1 MiB prefix
+    for who, corpus in (("tok", text), ("ac", ac_text)):
+        m = card[who]
+        prefix = corpus[:MIB]
+        want, final = host_walk(m.tables.table.cpu().numpy(),
+                                m.tables.class_of.cpu().numpy(),
+                                m.tables.accept.cpu().numpy(), prefix, m.start)
+        if m._accept_eof[final]:
+            want[final] += 1
+        check(np.array_equal(m.scan(prefix).counts[0], want),
+              f"{who}: 1 MiB scan against the host walk")
+        check(m.count(prefix) == int(want.sum()),
+              f"{who}: 1 MiB count against the host walk")
+    print("main: 1 MiB prefixes equal a per-byte host walk", flush=True)
+
+    # a parity automaton never converges: the exact fallback must answer
+    ptable = np.zeros((256, 2), dtype=np.int32)
+    ptable[:, 0] = 1
+    parity = CompiledDfa(table=ptable, accept=np.array([False, True]),
+                         start=0, dead=0)
+    pcfg = api.EngineConfig(scan_backend="device", num_blocks=1024,
+                            min_block_bytes=1)
+    pm = api.DfaMatcher(parity, pcfg, device=dev)
+    # 512 lanes of 131 bytes for the fast engine (too many for its Jacobi
+    # budget); 65 blocks of 1024 bytes for the exact blocked scan and a
+    # 512-byte tail for the serial one
+    pdata = rng.integers(0, 256, size=1024 * 65 + 512, dtype=np.uint8)
+    rep = pm.scan(pdata)
+    want, final = host_walk(ptable, np.arange(256), parity.accept, pdata, 0)
+    if parity.accept[final]:
+        want[final] += 1
+    check(not rep.metrics.converged, "parity automaton reported unconverged")
+    check(np.array_equal(rep.counts[0], want), "parity: exact fallback counts")
+    check(pm.count(pdata) == int(want.sum()), "parity: exact fallback count")
+    print(f"main: parity automaton: converged=False, exact fallback total "
+          f"{rep.total} equals the host walk", flush=True)
+    return launches, [(label, (lambda m=card[who], me=method, a=args:
+                               run(m, me, a)), nbytes)
+                      for label, who, method, args, nbytes in calls]
+
+
+# ------------------------------------------------------------ --profile
+
+
+def phase_profile(dev, calls, out_dir):
+    """One torch.profiler run of each API call after a warm-up: device time
+    in copies (memcpy/memset) and in kernels, and the share of the call's
+    wall time in which the device did neither. Also the host-to-device copy
+    of 64 MiB from pageable and from pinned memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    host = np.random.default_rng(SEED + 2).integers(0, 256, size=64 * MIB,
+                                                     dtype=np.uint8)
+    pinned = torch.from_numpy(host.copy()).pin_memory()
+    copies = {
+        "h2d pageable 64 MiB": lambda: torch.from_numpy(host).to(dev),
+        "h2d pinned 64 MiB": lambda: pinned.to(dev, non_blocking=True),
+    }
+    rows = []
+    for label, fn in copies.items():
+        fn()
+        ms = wall_ms(fn, REPEATS)
+        rows.append({"copy": label, "median_ms": float(np.median(ms)),
+                     "min_ms": min(ms), "max_ms": max(ms)})
+        print(f"profile: {json.dumps(rows[-1])}", flush=True)
+    for label, fn, nbytes in calls:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        copy_ms = kernel_ms = 0.0
+        top = {}
+        for e in prof.key_averages():
+            if e.device_type.name != "CUDA":
+                continue
+            ms = e.self_device_time_total / 1e3
+            if e.key.startswith(("Memcpy", "Memset")):
+                copy_ms += ms
+            else:
+                kernel_ms += ms
+                top[e.key[:60]] = ms
+        rows.append({
+            "call": label, "wall_ms": wall, "copy_ms": copy_ms,
+            "kernel_ms": kernel_ms,
+            "idle_share": 1 - (copy_ms + kernel_ms) / wall,
+            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:4]),
+        })
+        check(kernel_ms > 0, f"{label}: the profile shows device kernels")
+        print(f"profile: {json.dumps(rows[-1])}", flush=True)
+    if out_dir:
+        with open(os.path.join(out_dir, "profile.json"), "w") as f:
+            json.dump(rows, f, indent=1)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", help="directory for nvcc's report and results")
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile each API call (device copy, kernel "
+                             "and idle time)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible to torch", file=sys.stderr)
+        return 1
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    dev = torch.device("cuda")
+
+    phase_device(args.out)
+
+    from regex_fpga_tpu_torch.models import build_aho_corasick, build_tokenizer_dfa
+    from regex_fpga_tpu_torch.ops.tables import build_dfa_tables
+
+    tok = build_tokenizer_dfa()
+    tok_tables = build_dfa_tables(tok.table, tok.accept, device=dev)
+    ac = build_aho_corasick(WORDS[:300]).dfa
+    ac_tables = build_dfa_tables(ac.table, ac.accept, device=dev)
+    kernel_times = phase_kernels(dev, tok_tables, ac_tables)
+    launches, calls = phase_main_path(dev)
+    if args.profile:
+        phase_profile(dev, calls, args.out)
+
+    line = {"kernels": [
+        {"name": name, "route": route, "source": source, "replaces": replaces,
+         "launches": launches[name], **kernel_times[name]}
+        for name, (route, source, replaces) in KERNELS.items()
+    ]}
+    print(json.dumps(line), flush=True)
+    if args.out:
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(line, f, indent=1)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Torch port exact engine (regex_fpga_tpu_torch.ops.dfa_engine, the fast
+engine's fallback) against the JAX one, on the same seeded numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from regex_fpga_tpu.ops import build_dfa_tables as jax_build_dfa_tables
+from regex_fpga_tpu.ops import dfa_engine as je
+from regex_fpga_tpu_torch.ops import dfa_engine as te
+from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
+
+from conftest import random_dfa_table
+
+
+def both_tables(table, accept):
+    j = jax_build_dfa_tables(table, accept)
+    return j, tables_from_numpy(np.asarray(j.table), np.asarray(j.class_of),
+                                np.asarray(j.accept), j.num_states)
+
+
+def assert_result_equal(got, want):
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts))
+    assert int(got.final_state) == int(want.final_state)
+    np.testing.assert_array_equal(got.match_mask.numpy(),
+                                  np.asarray(want.match_mask))
+
+
+def parity_tables():
+    ptable = np.zeros((256, 2), dtype=np.int32)
+    ptable[:, 0] = 1
+    return both_tables(ptable, np.array([False, True]))
+
+
+@pytest.mark.parametrize("seed,s,length,start", [
+    (0, 24, 777, 0), (1, 9, 1, 4), (2, 40, 0, 0),
+])
+def test_serial_matches_jax(seed, s, length, start):
+    rng = np.random.default_rng(seed)
+    jt, pt = both_tables(*random_dfa_table(rng, s, 2))
+    stream = rng.integers(0, 256, size=length).astype(np.uint8)
+    want = je.dfa_scan_serial(jt, jnp.asarray(stream), start=start)
+    assert_result_equal(te.dfa_scan_serial(pt, stream, start=start), want)
+    assert_result_equal(te.dfa_scan_serial(pt, torch.as_tensor(stream),
+                                           start=start), want)
+
+
+@pytest.mark.parametrize("seed,s,nb,b", [(0, 11, 16, 32), (1, 30, 5, 64),
+                                         (2, 4, 1, 8)])
+def test_block_functions_and_entries_match_jax(seed, s, nb, b):
+    rng = np.random.default_rng(seed)
+    jt, pt = both_tables(*random_dfa_table(rng, s, 1))
+    classes = rng.integers(0, jt.num_classes, size=(nb, b)).astype(np.int32)
+    fj = je.block_transition_functions(jt, jnp.asarray(classes))
+    ft = te.block_transition_functions(pt, torch.as_tensor(classes))
+    np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+    for start in (0, s - 1):
+        ej, fin_j = je.block_entry_states(fj, start)
+        et, fin_t = te.block_entry_states(ft, start)
+        np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
+        assert int(fin_t) == int(fin_j)
+    np.testing.assert_array_equal(
+        te.compose(ft[:-1], ft[1:]).numpy(),
+        np.asarray(je.compose(fj[:-1], fj[1:])),
+    )
+
+
+@pytest.mark.parametrize("seed,s,blocks,block_size,start", [
+    (0, 24, 8, 128, 0), (1, 48, 3, 1024, 7), (2, 6, 1, 64, 0),
+])
+def test_blocked_matches_jax(seed, s, blocks, block_size, start):
+    rng = np.random.default_rng(seed)
+    jt, pt = both_tables(*random_dfa_table(rng, s, 3))
+    stream = rng.integers(0, 256, size=blocks * block_size).astype(np.uint8)
+    want = je.dfa_scan_blocked(jt, jnp.asarray(stream), block_size=block_size,
+                               start=start)
+    got = te.dfa_scan_blocked(pt, torch.as_tensor(stream),
+                              block_size=block_size, start=start)
+    assert_result_equal(got, want)
+
+
+def test_blocked_is_exact_on_parity_automaton():
+    """The exact path settles what the Jacobi seams cannot."""
+    jt, pt = parity_tables()
+    stream = np.zeros(7 * 128, np.uint8)
+    want = je.dfa_scan_blocked(jt, jnp.asarray(stream), block_size=128)
+    got = te.dfa_scan_blocked(pt, torch.as_tensor(stream), block_size=128)
+    assert_result_equal(got, want)
+    assert_result_equal(got, te.dfa_scan_serial(pt, stream))

@@ -1,0 +1,270 @@
+"""Torch port k=1 engine (regex_fpga_tpu_torch.ops.dfa_fast and the plain
+versions of its kernels K1/K2 in ops.hopper_dfa) against the JAX engine and
+the Pallas kernels in interpret mode, on the same seeded numpy inputs. All
+integer results must be exactly equal."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from regex_fpga_tpu.ops import build_dfa_tables as jax_build_dfa_tables
+from regex_fpga_tpu.ops import dfa_fast as jf
+from regex_fpga_tpu.ops.pallas_dfa import (
+    LANE_TILE,
+    chain_pass_counts_pallas,
+    chain_pass_finals_pallas,
+    chain_pass_full_pallas,
+)
+from regex_fpga_tpu_torch.ops import dfa_fast as tf
+from regex_fpga_tpu_torch.ops import hopper_dfa
+from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
+
+from conftest import random_dfa_table
+
+
+def both_tables(table, accept):
+    j = jax_build_dfa_tables(table, accept)
+    return j, port_tables(j)
+
+
+def port_tables(j):
+    return tables_from_numpy(np.asarray(j.table), np.asarray(j.class_of),
+                             np.asarray(j.accept), j.num_states)
+
+
+def to_np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_eq(port, ref):
+    np.testing.assert_array_equal(to_np(port), to_np(ref))
+
+
+def chain_inputs(rng, num_classes, num_states, b, nb, block_major, dtype):
+    """(B, NB) class columns and entries as numpy, and as torch tensors whose
+    storage is time-major or block-major (a ``.T`` view)."""
+    cls = rng.integers(0, num_classes, size=(b, nb)).astype(np.int32)
+    ent = rng.integers(0, num_states, size=nb).astype(np.int32)
+    if block_major:
+        cls_t = torch.as_tensor(np.ascontiguousarray(cls.T)).to(dtype).T
+    else:
+        cls_t = torch.as_tensor(cls).to(dtype)
+    return cls, ent, cls_t, torch.as_tensor(ent)
+
+
+@pytest.mark.parametrize("seed,s,block_major,dtype", [
+    (0, 48, False, torch.uint8),
+    (1, 23, True, torch.int32),
+    (2, 200, True, torch.int16),
+    (3, 5, False, torch.int32),
+])
+def test_chain_passes_match_jax(seed, s, block_major, dtype):
+    rng = np.random.default_rng(seed)
+    jt, pt = both_tables(*random_dfa_table(rng, s, max(1, s // 8)))
+    b, nb, n = 40, 96, 4
+    cls, ent, cls_t, ent_t = chain_inputs(rng, jt.num_classes, s, b, nb,
+                                          block_major, dtype)
+    cj, ej = jnp.asarray(cls), jnp.asarray(ent)
+
+    assert_eq(tf.chain_pass_finals(pt, cls_t, ent_t),
+              jf.chain_pass_finals(jt, cj, ej))
+    for got, want in zip(tf.chain_pass_full(pt, cls_t, ent_t),
+                         jf.chain_pass_full(jt, cj, ej)):
+        assert_eq(got, want)
+    for got, want in zip(tf.chain_pass_mask(pt, cls_t, ent_t),
+                         jf.chain_pass_mask(jt, cj, ej)):
+        assert_eq(got, want)
+    for got, want in zip(tf.chain_pass_counts(pt, cls_t, ent_t),
+                         jf.chain_pass_counts(jt, cj, ej)):
+        assert_eq(got, want)
+    got = tf._chain_pass_counts_multi(pt, cls_t, ent_t, n)
+    want = jf._chain_pass_counts_multi(jt, cj, ej, n)
+    assert got[1].shape == (n, s)
+    for g, w in zip(got, want):
+        assert_eq(g, w)
+
+
+@pytest.mark.parametrize("seed,s", [(0, 48), (1, 23)])
+def test_chain_passes_match_pallas_interpret(seed, s):
+    """The plain K1/K2 against the Pallas kernels they replace, run as
+    tests/test_pallas_dfa.py runs them (interpret mode, NB=2*1024, B=128)."""
+    rng = np.random.default_rng(seed)
+    jt, pt = both_tables(*random_dfa_table(rng, s, max(2, s // 10)))
+    b, nb = 128, 2 * LANE_TILE
+    cls, ent, cls_t, ent_t = chain_inputs(rng, jt.num_classes, s, b, nb,
+                                          False, torch.uint8)
+    cj, ej = jnp.asarray(cls), jnp.asarray(ent)
+    for got, want in zip(hopper_dfa.dfa_chain(pt.table, pt.accept, cls_t,
+                                              ent_t, "full"),
+                         chain_pass_full_pallas(jt, cj, ej)):
+        assert_eq(got, want)
+    assert_eq(hopper_dfa.dfa_chain(pt.table, pt.accept, cls_t, ent_t)[0],
+              chain_pass_finals_pallas(jt, cj, ej))
+    for got, want in zip(hopper_dfa.dfa_chain_counts(pt.table, pt.accept,
+                                                     cls_t, ent_t),
+                         chain_pass_counts_pallas(jt, cj, ej)):
+        assert_eq(got, want)
+
+
+def assert_fast_equal(got, want):
+    assert_eq(got.final_state, want.final_state)
+    assert got.converged == bool(want.converged)
+    assert got.iterations == int(want.iterations)
+    assert bool(got.domain_ok) == bool(want.domain_ok)
+    for field in ("match_mask", "states", "counts"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), field
+        if g is not None:
+            assert_eq(g, w)
+
+
+@pytest.mark.parametrize("emit", ["full", "mask", "counts"])
+@pytest.mark.parametrize("seed,s,length,nb,start,overlap", [
+    (0, 48, 4096, 8, 0, 64),
+    (1, 32, 2048, 16, 5, 64),
+    (2, 48, 8192, 32, 0, 64),
+    (3, 32, 2048, 16, 0, 0),
+    (4, 12, 1024, 1, 3, 64),
+])
+def test_scan_fast_matches_jax(emit, seed, s, length, nb, start, overlap):
+    rng = np.random.default_rng(seed)
+    jt, pt = both_tables(*random_dfa_table(rng, s, max(1, s // 8)))
+    stream = rng.integers(0, 256, size=length).astype(np.uint8)
+    classes = np.asarray(jt.class_of)[stream].astype(np.uint8)
+    want = jf.dfa_scan_fast(jt, jnp.asarray(classes), num_blocks=nb,
+                            start=start, emit=emit, overlap=overlap)
+    got = tf.dfa_scan_fast(pt, torch.as_tensor(classes), num_blocks=nb,
+                           start=start, emit=emit, overlap=overlap)
+    assert_fast_equal(got, want)
+
+
+@pytest.mark.parametrize("max_iters", [4, 16])
+@pytest.mark.parametrize("emit", ["full", "counts"])
+def test_scan_fast_parity_automaton(max_iters, emit):
+    """Parity counter with odd blocks never synchronizes: speculation fails,
+    the Jacobi loop needs NB iterations, and a low budget is reported as
+    not converged; both engines count iterations the same way."""
+    ptable = np.zeros((256, 2), dtype=np.int32)
+    ptable[:, 0] = 1
+    jt, pt = both_tables(ptable, np.array([False, True]))
+    stream = np.zeros(127 * 8, np.uint8)
+    want = jf.dfa_scan_fast(jt, jnp.asarray(stream), num_blocks=8,
+                            max_iters=max_iters, emit=emit)
+    got = tf.dfa_scan_fast(pt, torch.as_tensor(stream), num_blocks=8,
+                           max_iters=max_iters, emit=emit)
+    assert got.converged == (max_iters == 16)
+    assert_fast_equal(got, want)
+
+
+@pytest.mark.parametrize("emit", ["counts", "full"])
+@pytest.mark.parametrize("seed,n,length,nb,per_stream_starts", [
+    (0, 2, 64, 4, False),
+    (1, 3, 256, 8, True),
+    (2, 5, 128, 1, False),
+    (3, 4, 512, 16, True),
+])
+def test_scan_fast_multi_matches_jax(emit, seed, n, length, nb,
+                                     per_stream_starts):
+    rng = np.random.default_rng(seed)
+    jt, pt = both_tables(*random_dfa_table(rng, 13, 2))
+    data = rng.integers(0, 256, size=(n, length)).astype(np.uint8)
+    classes = np.asarray(jt.class_of)[data].astype(np.uint8)
+    starts = (rng.integers(0, 13, size=n).astype(np.int32)
+              if per_stream_starts else 0)
+    want = jf.dfa_scan_fast_multi(jt, jnp.asarray(classes), num_blocks=nb,
+                                  starts=jnp.asarray(starts), emit=emit)
+    got = tf.dfa_scan_fast_multi(pt, torch.as_tensor(classes), num_blocks=nb,
+                                 starts=torch.as_tensor(starts), emit=emit)
+    assert got.converged == bool(want.converged)
+    assert got.iterations == int(want.iterations)
+    assert bool(got.domain_ok) == bool(want.domain_ok)
+    assert_eq(got.final_states, want.final_states)
+    for field in ("counts", "match_mask", "states"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), field
+        if g is not None:
+            assert_eq(g, w)
+
+
+@pytest.mark.parametrize("cell,value", [((0, 0), 999), ((1, 2), -3)])
+@pytest.mark.parametrize("emit", ["full", "counts"])
+def test_corrupt_table_flagged_like_jax(cell, value, emit):
+    """A corrupt table (out-of-range target) is flagged by domain_ok in both
+    engines, and the out-of-range ids step exactly as the JAX one-hot
+    lookup steps them, so even the discarded results agree."""
+    rng = np.random.default_rng(0)
+    jt, _ = both_tables(*random_dfa_table(rng, 16, 3))
+    bad_j = dataclasses.replace(jt, table=jt.table.at[cell].set(value))
+    bad_t = port_tables(bad_j)
+    assert not bool(jf.table_domain_ok(bad_j))
+    assert not bool(tf.table_domain_ok(bad_t))
+    stream = rng.integers(0, 256, size=4096).astype(np.uint8)
+    classes = np.asarray(jt.class_of)[stream].astype(np.int32)
+    want = jf.dfa_scan_fast(bad_j, jnp.asarray(classes), num_blocks=32,
+                            emit=emit)
+    got = tf.dfa_scan_fast(bad_t, torch.as_tensor(classes), num_blocks=32,
+                           emit=emit)
+    assert not bool(got.domain_ok)
+    assert_fast_equal(got, want)
+    want_m = jf.dfa_scan_fast_multi(bad_j, jnp.asarray(classes)[None, :],
+                                    num_blocks=32, emit="counts")
+    got_m = tf.dfa_scan_fast_multi(bad_t, torch.as_tensor(classes)[None, :],
+                                   num_blocks=32, emit="counts")
+    assert not bool(got_m.domain_ok) and not bool(want_m.domain_ok)
+    assert_eq(got_m.counts, want_m.counts)
+
+
+def test_table_domain_ok_clean_tables():
+    rng = np.random.default_rng(1)
+    for s in (3, 16, 300):
+        jt, pt = both_tables(*random_dfa_table(rng, s, 1))
+        assert bool(tf.table_domain_ok(pt)) == bool(jf.table_domain_ok(jt))
+
+
+@pytest.mark.parametrize("n,p", [(1, 0.5), (256, 0.0), (256, 1.0),
+                                 (1024, 0.03), (4096, 0.2), (4096, 0.6)])
+def test_mask_positions_matches_jax(n, p):
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < p
+    cap = max(8, n // 2)
+    pos_j, count_j = jf.mask_positions(jnp.asarray(mask), cap)
+    pos_t, count_t = tf.mask_positions(torch.as_tensor(mask), cap)
+    assert int(count_t) == int(count_j) == int(mask.sum())
+    take = min(int(count_j), cap)
+    assert pos_t.shape == (cap,) and pos_t.dtype == torch.int32
+    assert_eq(pos_t[:take], np.asarray(pos_j)[:take])
+
+
+def test_chain_wrappers_reject_bad_inputs():
+    rng = np.random.default_rng(0)
+    _, pt = both_tables(*random_dfa_table(rng, 8, 1))
+    cls = torch.zeros((4, 6), dtype=torch.uint8)
+    ent = torch.zeros(6, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        hopper_dfa.dfa_chain(pt.table, pt.accept, cls.float(), ent)
+    with pytest.raises(TypeError):
+        hopper_dfa.dfa_chain(pt.table, pt.accept, cls, ent[:5])
+    with pytest.raises(ValueError):
+        hopper_dfa.dfa_chain(pt.table, pt.accept, cls, ent, mode="states")
+    with pytest.raises(ValueError):
+        hopper_dfa.dfa_chain_counts(pt.table, pt.accept, cls, ent,
+                                    num_streams=4)
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    """Only CPU tensors reach the plain version: any other device launches
+    the kernel or raises (here: a device with no kernel at all)."""
+    rng = np.random.default_rng(0)
+    _, pt = both_tables(*random_dfa_table(rng, 8, 1))
+    meta = pt.to("meta")
+    cls = torch.zeros((4, 6), dtype=torch.uint8, device="meta")
+    ent = torch.zeros(6, dtype=torch.int32, device="meta")
+    before = dict(hopper_dfa.LAUNCHES)
+    with pytest.raises(ValueError, match="no kernel"):
+        hopper_dfa.dfa_chain(meta.table, meta.accept, cls, ent)
+    with pytest.raises(ValueError, match="no kernel"):
+        hopper_dfa.dfa_chain_counts(meta.table, meta.accept, cls, ent)
+    assert hopper_dfa.LAUNCHES == before
