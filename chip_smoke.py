@@ -9,23 +9,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device: needs a CUDA card; prints the card's name and power limit as
    nvidia-smi reports them, then builds the Hopper kernels from
-   regex_fpga_tpu_torch/csrc with nvcc and prints the build time;
+   regex_fpga_tpu_torch/csrc with nvcc and the native host walker from
+   native/golden_scan.cpp with g++, and prints the build times;
 2. kernels: K1 (dfa_chain, all three modes), K2 (dfa_chain_counts, single
    and per-stream) and K3 (kgram_chain) against their plain PyTorch
    versions on the card at the main path's shapes, bit for bit, with the
-   time of each;
-3. main path: the tokenizer and a 300-keyword Aho-Corasick matcher through
-   the port's API at a 64 MiB chunk and 65,536 lanes, each call timed as
-   the median of REPEATS runs; every result is held to the same call on
-   the CPU (the plain path) or to a host walk, and the launch counts show
-   that each kernel ran;
-4. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
+   time of each; then K1/K2 on a lazy-DFA snapshot of the Snort-corpus NFA
+   and K4 (nfa_active_scan) on the l7-corpus NFA, a forced overflow
+   included;
+3. DFA main path: the tokenizer and a 300-keyword Aho-Corasick matcher
+   through the port's API at a 64 MiB chunk and 65,536 lanes, each call
+   timed as the median of REPEATS runs; every result is held to the same
+   call on the CPU (the plain path) or to a host walk, and the launch
+   counts show that each kernel ran;
+4. NFA main path: compile_ruleset on the 35,259-state Snort-corpus content
+   NFA ("lazy-device" over one 64 MiB stream, "lazy" over it and over 64
+   flows of 1 MiB) and on the 722-state l7-corpus NFA ("active-set" over 64
+   flows of 1 MiB), each timed as the median of REPEATS runs and held
+   bit for bit to the host walk of the portable native build (and a
+   prefix to the Python oracle); the launch counts show that K1, K2 and K4
+   ran;
+5. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
 
 ``--out DIR`` also writes nvcc's report and the results there.
-``--profile`` adds, after phase 3, one torch.profiler run of each API call
-(device time in copies and in kernels, and the idle share of the call's
-wall time) and the host-to-device copy of 64 MiB from pageable and from
-pinned memory. The script imports torch, numpy and the port, and nothing
+``--profile`` adds, after phase 4, one torch.profiler run of each API call
+that uses the card (device time in copies and in kernels, and the idle share
+of the call's wall time) and the host-to-device copy of 64 MiB from pageable
+and from pinned memory. The script imports torch, numpy and the port, and nothing
 of JAX or of the JAX package.
 """
 
@@ -43,7 +53,7 @@ import torch
 
 MIB = 1 << 20
 SEED = 20261016
-REPEATS = 5  # timed runs per API call in phase 3; the median is reported
+REPEATS = 5  # timed runs per API call in phases 3 and 4; the median is reported
 
 # bench.py's synthetic text: word-like structure, so the tokenizer DFA does
 # real work
@@ -62,7 +72,11 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                          "regex_fpga_tpu/ops/pallas_dfa.py:196"),
     "kgram_chain": ("cuda", "regex_fpga_tpu_torch/csrc/kgram_chain.cu",
                     "regex_fpga_tpu/ops/pallas_kgram.py:65"),
+    "nfa_active_scan": ("cuda", "regex_fpga_tpu_torch/csrc/nfa_active.cu",
+                        "regex_fpga_tpu/ops/nfa_engine.py:43"),
 }
+DFA_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain")
+NFA_PATH = ("dfa_chain", "dfa_chain_counts", "nfa_active_scan")
 
 
 def check(cond: bool, what: str) -> None:
@@ -108,6 +122,27 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram, hopper_nfa
+
+    return {**hopper_dfa.LAUNCHES, **hopper_kgram.LAUNCHES,
+            **hopper_nfa.LAUNCHES}
+
+
+def reset_launches() -> None:
+    from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram, hopper_nfa
+
+    for launches in (hopper_dfa.LAUNCHES, hopper_kgram.LAUNCHES,
+                     hopper_nfa.LAUNCHES):
+        for k in launches:
+            launches[k] = 0
+
+
+def tiled(data: bytes, n: int) -> np.ndarray:
+    return np.resize(np.frombuffer(data, np.uint8), n)
+
+
 def host_walk(table, class_of, accept, data: np.ndarray, start: int):
     """Independent reference: a per-byte Python walk. Returns per-state
     accept-visit counts and the final state."""
@@ -124,7 +159,7 @@ def host_walk(table, class_of, accept, data: np.ndarray, start: int):
 
 
 def phase_device(out_dir):
-    from regex_fpga_tpu_torch import _build
+    from regex_fpga_tpu_torch import _build, native
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -140,6 +175,11 @@ def phase_device(out_dir):
     print(f"build: nvcc {info.seconds:.2f} s, build and load "
           f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(info.path)}",
           flush=True)
+    t0 = time.perf_counter()
+    lib = native.library()
+    print(f"build: native walker (g++ {' '.join(native.GXX_FLAGS)}) built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s -> "
+          f"{os.path.relpath(lib._name)}", flush=True)
     if out_dir:
         with open(os.path.join(out_dir, "nvcc_report.txt"), "w") as f:
             f.write(info.log)
@@ -169,7 +209,7 @@ def phase_kernels(dev, tok_tables, ac_tables):
         ("aho-corasick", ac_tables, 1024, torch.int32, False),
         ("random-global", big, 256, torch.uint8, True),
     ]
-    errs = {name: 0 for name in KERNELS}
+    errs = {name: 0 for name in DFA_PATH}
     for name, t, b, dtype, block_major in cases:
         c, s = t.table.shape
         shape = (nb, b) if block_major else (b, nb)
@@ -262,7 +302,7 @@ def phase_kernels(dev, tok_tables, ac_tables):
             lambda: hd.dfa_chain_counts(bt, ba, rnd_cls, ent),
     }
     results = {}
-    for name in KERNELS:
+    for name in DFA_PATH:
         ms = event_ms(timing[name], 20)
         plain_ms = event_ms(plain[name], 2)
         results[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
@@ -275,6 +315,96 @@ def phase_kernels(dev, tok_tables, ac_tables):
     return results
 
 
+def one_run_ms(fn) -> tuple[object, float]:
+    """(result, device milliseconds) of one run of ``fn``, CUDA events."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def phase_nfa_kernels(dev, snort_ld, snort_bytes, l7_aut, l7_bytes):
+    """K1/K2 at the lazy-device path's shape (1,024 lanes x 4,096 steps of a
+    4 MiB chunk) on the snapshot of the warmed Snort-corpus lazy DFA, and K4
+    on the l7-corpus NFA (4 streams of 16 KiB; bound 128, and bound 4, which
+    overflows), each against its plain version, bit for bit. Returns K4's
+    {"max_abs_err", "ms", "plain_ms"}."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+    from regex_fpga_tpu_torch.ops import hopper_nfa as hn
+    from regex_fpga_tpu_torch.ops.lazy_scan import _pad_for
+    from regex_fpga_tpu_torch.ops.nfa_engine import initial_active
+    from regex_fpga_tpu_torch.ops.tables import build_nfa_csr
+
+    rng = np.random.default_rng(SEED + 4)
+    table_np, unknown, n_acc = snort_ld.snapshot(pad_to=_pad_for(snort_ld))
+    accept_np = n_acc > 0
+    accept_np[unknown] = True
+    table = torch.as_tensor(table_np, device=dev)
+    accept = torch.as_tensor(accept_np, device=dev)
+    c, m1 = table.shape
+    nb, b = 1024, 4096
+    cls = torch.as_tensor(snort_ld.class_of[snort_bytes[: nb * b]].astype(np.uint8),
+                          device=dev).reshape(nb, b).T
+    ent = torch.as_tensor(rng.integers(0, m1, size=nb).astype(np.int32),
+                          device=dev)
+    err = 0
+    for mode in hd.MODES:
+        err = max(err, max_abs_err(hd.dfa_chain(table, accept, cls, ent, mode),
+                                   hd.dfa_chain_plain(table, accept, cls, ent, mode)))
+    err = max(err, max_abs_err(hd.dfa_chain_counts(table, accept, cls, ent),
+                               hd.dfa_chain_counts_plain(table, accept, cls, ent)))
+    check(err == 0, f"K1/K2 on the lazy table differ from plain by {err}")
+    route = hd.dfa_chain_route("finals", c, m1)
+    lazy_times = {
+        "dfa_chain[finals]": (lambda: hd.dfa_chain(table, accept, cls, ent),
+                              lambda: hd.dfa_chain_plain(table, accept, cls, ent)),
+        "dfa_chain_counts": (lambda: hd.dfa_chain_counts(table, accept, cls, ent),
+                             lambda: hd.dfa_chain_counts_plain(table, accept, cls, ent)),
+    }
+    print(f"kernels: lazy-DFA snapshot of the Snort-corpus NFA, table "
+          f"({c}, {m1}) int32 in {'shared' if route['table_smem'] else 'global'}"
+          f" memory, {nb}x{b} uint8 block-major: K1 x3 modes and K2 "
+          f"bit-exact against plain (tolerance 0)", flush=True)
+    for name, (fn, plain) in lazy_times.items():
+        ms = event_ms(fn, 20)
+        _, plain_ms = one_run_ms(plain)
+        print(f"time: {name}[lazy table ({c}, {m1}), {nb}x{b}] {ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms ({nb * b / ms / 1e6:.2f} GB/s of text)",
+              flush=True)
+
+    csr = build_nfa_csr(l7_aut, device=dev)
+    s = l7_aut.num_states
+    n, size = 4, 16 * 1024
+    data = torch.as_tensor(np.array(l7_bytes[: 64 * size]), device=dev)
+    starts = rng.integers(0, 63 * size, size=n)
+    lens = np.full(n, size)
+    err = 0
+    results = {}
+    for bound in (128, 4):
+        act = initial_active(s, bound, n, dev)
+        cnt = torch.zeros((n, s + 1), dtype=torch.int32, device=dev)
+        got = hn.nfa_active_scan(csr, data, starts, lens, act, cnt)
+        want, plain_ms = one_run_ms(
+            lambda: hn.nfa_active_scan_plain(csr, data, starts, lens, act, cnt))
+        err = max(err, max_abs_err(got, want))
+        overflowed = int(want[2].sum())
+        check(overflowed == 0 if bound == 128 else overflowed > 0,
+              f"K4 bound {bound}: {overflowed} streams overflowed")
+        ms = event_ms(lambda: hn.nfa_active_scan(csr, data, starts, lens, act, cnt), 10)
+        results[bound] = (ms, plain_ms)
+        print(f"kernels: K4 l7-corpus NFA S={s} C={csr.num_classes}, {n} streams "
+              f"x 16 KiB, bound {bound}: {overflowed} overflowed, counts, lists "
+              f"and flags bit-exact against plain (tolerance 0); {ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms", flush=True)
+    check(err == 0, f"nfa_active_scan differs from its plain version by {err}")
+    ms, plain_ms = results[128]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -283,7 +413,6 @@ def phase_main_path(dev):
     the calls, as (label, zero-argument function, bytes) for the profile."""
     from regex_fpga_tpu_torch import api
     from regex_fpga_tpu_torch.models import CompiledDfa, build_aho_corasick
-    from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram
 
     rng = np.random.default_rng(SEED + 1)
     cfg = api.EngineConfig(scan_backend="device")  # chunk 64 MiB, 65536 lanes
@@ -328,9 +457,7 @@ def phase_main_path(dev):
             return m.scan(*args, collect_positions=True)
         return getattr(m, method)(*args)
 
-    for launches in (hopper_dfa.LAUNCHES, hopper_kgram.LAUNCHES):
-        for k in launches:
-            launches[k] = 0
+    reset_launches()
     got = {}
     for label, who, method, args, nbytes in calls:
         got[label] = run(card[who], method, args)  # warm-up: lazy tables
@@ -344,10 +471,10 @@ def phase_main_path(dev):
         print(f"main: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
               f"{REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max {max(ms):.2f})"
               f"{note}", flush=True)
-    launches = {**hopper_dfa.LAUNCHES, **hopper_kgram.LAUNCHES}
+    launches = launch_counters()
     print(f"main: launches {json.dumps(launches)}", flush=True)
-    for name in KERNELS:
-        check(launches[name] > 0, f"{name} launched on the main path")
+    for name in DFA_PATH:
+        check(launches[name] > 0, f"{name} launched on the DFA main path")
 
     # the same calls on the plain path (CPU tensors)
     t0 = time.perf_counter()
@@ -407,6 +534,82 @@ def phase_main_path(dev):
                       for label, who, method, args, nbytes in calls]
 
 
+# ---------------------------------------------------------------- phase 4
+
+
+def phase_nfa_path(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
+    """compile_ruleset through all three strategies at full size. Returns
+    the kernel launch counts and the calls for the profile."""
+    from regex_fpga_tpu_torch import api
+    from regex_fpga_tpu_torch.models import nfa_scan
+
+    rng = np.random.default_rng(SEED + 3)
+    cfg = api.EngineConfig(scan_backend="device")
+    check(cfg.active_bound == 128, "default active bound")
+    snort_flows = [snort_bytes[o:o + MIB]
+                   for o in rng.integers(0, 63 * MIB, size=64).tolist()]
+    l7_flows = np.stack([l7_bytes[o:o + MIB]
+                         for o in rng.integers(0, 63 * MIB, size=64).tolist()])
+    m = {"snort-dev": api.compile_ruleset(snort_aut, cfg, "lazy-device", dev),
+         "snort-host": api.compile_ruleset(snort_aut, cfg, "lazy", dev),
+         "l7-dev": api.compile_ruleset(l7_aut, cfg, "active-set", dev),
+         "l7-host": api.compile_ruleset(l7_aut, cfg, "lazy", dev)}
+    calls = [  # label, matcher, data, bytes
+        (f"snort S={snort_aut.num_states} lazy-device 64 MiB", "snort-dev",
+         snort_bytes, snort_bytes.size),
+        (f"snort S={snort_aut.num_states} lazy 64 MiB", "snort-host",
+         snort_bytes, snort_bytes.size),
+        (f"snort S={snort_aut.num_states} lazy 64 flows x 1 MiB", "snort-host",
+         snort_flows, 64 * MIB),
+        (f"l7 S={l7_aut.num_states} active-set 64 flows x 1 MiB", "l7-dev",
+         l7_flows, l7_flows.size),
+    ]
+    reset_launches()
+    got = {}
+    for label, who, data, nbytes in calls:
+        got[label] = m[who].scan(data)  # warm-up: tables, lazy DFA states
+        ms = wall_ms(lambda: m[who].scan(data), REPEATS)
+        med = float(np.median(ms))
+        print(f"main: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
+              f"{REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max {max(ms):.2f}), "
+              f"total={got[label].total}, engine={got[label].metrics.engine}",
+              flush=True)
+    launches = launch_counters()
+    print(f"main: NFA launches {json.dumps(launches)}", flush=True)
+    for name in NFA_PATH:
+        check(launches[name] > 0, f"{name} launched on the NFA main path")
+
+    # references: serial host walks of the portable native build, and the
+    # Python oracle on prefixes
+    t0 = time.perf_counter()
+    ld = m["snort-host"].lazy_dfa
+    ref, _, _ = ld.host_scan(snort_bytes)
+    for label, _, data, _ in calls[:2]:
+        check(np.array_equal(got[label].counts[0], ref), f"{label}: counts")
+    flows_ref = np.stack([ld.host_scan(f)[0] for f in snort_flows])
+    check(np.array_equal(got[calls[2][0]].counts, flows_ref),
+          f"{calls[2][0]}: counts against per-flow serial walks")
+    l7_ref, _ = m["l7-host"].lazy_dfa.host_scan_batch(list(l7_flows))
+    check(np.array_equal(got[calls[3][0]].counts, l7_ref),
+          f"{calls[3][0]}: counts against the lazy host walk")
+    for label, *_ in calls:
+        check(got[label].total > 0, f"{label}: matches found")
+    print(f"main: every NFA call equals the portable native host walk "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    pre = snort_bytes[:16 * 1024]
+    check(np.array_equal(m["snort-dev"].scan(pre).counts[0],
+                         nfa_scan(snort_aut, pre)), "snort 16 KiB: oracle")
+    pre = l7_flows[0][:64 * 1024]
+    check(np.array_equal(m["l7-dev"].scan(pre).counts[0], nfa_scan(l7_aut, pre)),
+          "l7 64 KiB: oracle")
+    print(f"main: the 16 KiB Snort and 64 KiB l7 prefixes equal the Python "
+          f"oracle ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches, [(label, (lambda mm=m[who], d=data: mm.scan(d)), nbytes)
+                      for label, who, data, nbytes in calls
+                      if m[who].strategy != "lazy"]
+
+
 # ------------------------------------------------------------ --profile
 
 
@@ -450,7 +653,7 @@ def phase_profile(dev, calls, out_dir):
                 copy_ms += ms
             else:
                 kernel_ms += ms
-                top[e.key[:60]] = ms
+                top[e.key[:60]] = top.get(e.key[:60], 0.0) + ms
         rows.append({
             "call": label, "wall_ms": wall, "copy_ms": copy_ms,
             "kernel_ms": kernel_ms,
@@ -481,7 +684,11 @@ def main(argv=None) -> int:
 
     phase_device(args.out)
 
-    from regex_fpga_tpu_torch.models import build_aho_corasick, build_tokenizer_dfa
+    from regex_fpga_tpu_torch import native
+    from regex_fpga_tpu_torch.models import (build_aho_corasick,
+                                             build_tokenizer_dfa, gen_l7_traffic,
+                                             gen_traffic, l7_corpus_nfa,
+                                             snort_corpus_nfa)
     from regex_fpga_tpu_torch.ops.tables import build_dfa_tables
 
     tok = build_tokenizer_dfa()
@@ -489,9 +696,26 @@ def main(argv=None) -> int:
     ac = build_aho_corasick(WORDS[:300]).dfa
     ac_tables = build_dfa_tables(ac.table, ac.accept, device=dev)
     kernel_times = phase_kernels(dev, tok_tables, ac_tables)
-    launches, calls = phase_main_path(dev)
+
+    t0 = time.perf_counter()
+    snort_aut, l7_aut = snort_corpus_nfa(), l7_corpus_nfa()
+    snort_bytes = tiled(b"".join(gen_traffic()[0]), 64 * MIB)
+    l7_bytes = tiled(b"".join(gen_l7_traffic()[0]), 64 * MIB)
+    snort_ld = native.lazy_dfa(snort_aut)
+    snort_ld.host_scan(snort_bytes[:4 * MIB])
+    print(f"nfa: Snort-corpus NFA S={snort_aut.num_states}, l7-corpus NFA "
+          f"S={l7_aut.num_states}, Snort lazy DFA warmed to "
+          f"{snort_ld.num_states} subset states "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    kernel_times["nfa_active_scan"] = phase_nfa_kernels(
+        dev, snort_ld, snort_bytes, l7_aut, l7_bytes)
+
+    dfa_launches, calls = phase_main_path(dev)
+    nfa_launches, nfa_calls = phase_nfa_path(dev, snort_aut, snort_bytes,
+                                             l7_aut, l7_bytes)
+    launches = {k: dfa_launches[k] + nfa_launches[k] for k in KERNELS}
     if args.profile:
-        phase_profile(dev, calls, args.out)
+        phase_profile(dev, calls + nfa_calls, args.out)
 
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,

@@ -89,8 +89,9 @@ def library() -> ctypes.CDLL:
     lib.dfa_chain_route.argtypes = [i, i, i, i, i]
     lib.kgram_chain.argtypes = [p, i, ll, ll, p, i, i, p, i, i, p, p, p]
     lib.kgram_chain_route.argtypes = [i, i]
+    lib.nfa_active_scan.argtypes = [p, p, p, i, p, p, p, p, i, i, p, p, p, p]
     for fn in (lib.dfa_chain, lib.dfa_chain_counts, lib.dfa_chain_route,
-               lib.kgram_chain, lib.kgram_chain_route):
+               lib.kgram_chain, lib.kgram_chain_route, lib.nfa_active_scan):
         fn.restype = i
     return lib
 

@@ -1,6 +1,6 @@
-"""Public API of the torch port: DFA matchers on the dense-DFA scan path.
+"""Public API of the torch port: DFA matchers and the NFA conformance engine.
 
-The counterpart of the DFA half of ``regex_fpga_tpu/api.py``::
+The counterpart of the DFA and NFA halves of ``regex_fpga_tpu/api.py``::
 
     m = compile_regex(r"\\d+\\.\\d+", device="cuda")  # fast DFA engine
     report = m.scan(data)                               # per-state counts
@@ -9,11 +9,15 @@ The counterpart of the DFA half of ``regex_fpga_tpu/api.py``::
     tok = compile_tokenizer(device="cuda")              # GPT-2 pre-split
     offsets = tok.presplit(text)
 
-A matcher holds its tables on ``device`` and scans every chunk there; the
-chain passes run on the Hopper kernels for a CUDA device and on their plain
-versions for the CPU. Results equal the JAX package's bit for bit.
+    nfa = compile_ruleset("rules.coe", strategy="lazy-device", device="cuda")
+    report = nfa.scan([flow_a, flow_b])                 # per-NFA-state counts
 
-Not in this package yet: the engine router and the native host walker
+A matcher holds its tables on ``device`` and scans every chunk there; the
+chain passes and the active-set scan run on the Hopper kernels for a CUDA
+device and on their plain versions for the CPU. Results equal the JAX
+package's bit for bit.
+
+Not in this package yet: the engine router and the host DFA walker
 (``scan_backend="auto"`` and ``"host"``; the router chooses between the
 device and the host engines), span extraction (``finditer``/``search``/
 ``findall``, which needs the reverse matcher), and the host matchers that
@@ -24,7 +28,6 @@ backreferences. Each raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -33,15 +36,18 @@ import torch
 from regex_fpga_tpu.utils.config import EngineConfig, shrink_blocks
 from regex_fpga_tpu.utils.metrics import RunMetrics, Timer
 
+from . import native
 from .models import (
     GPT2_PRESPLIT,
     CompiledDfa,
+    CsrAutomaton,
     TokenizerDfa,
     build_tokenizer_dfa,
     compile_pattern,
     contains_backtrack,
     contains_bound,
     contains_lazy,
+    load_coe,
     parse_pattern,
 )
 from .ops.dfa_engine import dfa_scan_blocked, dfa_scan_serial
@@ -53,16 +59,31 @@ from .ops.kgram import (
     map_kgram_classes,
     pack_ta,
 )
-from .ops.tables import DfaTables, build_dfa_tables, stall_extend
+from .ops.lazy_scan import lazy_nfa_scan
+from .ops.nfa_engine import initial_active, nfa_scan_streams
+from .ops.tables import (
+    DfaTables,
+    NfaCsr,
+    NfaTables,
+    build_dfa_tables,
+    build_nfa_csr,
+    build_nfa_tables,
+    host_to_device,
+    stall_extend,
+)
 
 __all__ = [
     "DEFAULT_CONFIG",
     "DfaMatcher",
     "DfaStreamScanner",
     "EngineConfig",
+    "LazyStreamScanner",
+    "NfaMatcher",
+    "NfaStreamScanner",
     "ScanReport",
     "TokenizerMatcher",
     "compile_regex",
+    "compile_ruleset",
     "compile_tokenizer",
 ]
 
@@ -158,13 +179,8 @@ class DfaMatcher:
     # ------------------------------------------------------------ plumbing
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array as a tensor on the matcher's device. Read-only
-        buffers (``bytes`` input) are shared, not copied: the scans only
-        read them."""
-        arr = np.ascontiguousarray(arr)
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", message=".*not writable.*")
-            return torch.from_numpy(arr).to(self.device)
+        """A host array as a tensor on the matcher's device."""
+        return host_to_device(arr, self.device)
 
     def _classes(self, raw: np.ndarray) -> torch.Tensor:
         """Byte-class ids (uint8) of raw bytes, mapped on the device."""
@@ -653,3 +669,230 @@ def compile_tokenizer(pattern: str = GPT2_PRESPLIT,
                       config: EngineConfig = DEFAULT_CONFIG,
                       device=None) -> TokenizerMatcher:
     return TokenizerMatcher(build_tokenizer_dfa(pattern), config, device)
+
+
+# ------------------------------------------------------------------ NFA
+
+
+NFA_STRATEGIES = ("lazy", "lazy-device", "active-set")
+
+
+class NfaMatcher:
+    """Bit-exact NFA matcher for CSR rulesets (the conformance engine).
+
+    Strategies:
+      - ``"lazy"`` (default): lazy subset determinization on the host, with
+        the native walker built from source (``native``); several streams
+        are walked together by its multi-cursor walk;
+      - ``"lazy-device"``: the same automaton, chunks scanned on ``device``
+        on K1/K2 with overlap-synchronized seams (``ops/lazy_scan.py``);
+      - ``"active-set"``: the bounded active-set engine on ``device`` (K4,
+        ``ops/nfa_engine.py``); all streams go through one launch per
+        ``chunk_bytes`` of each, and exceeding ``config.active_bound``
+        raises.
+
+    The tables are built when first read: the lazy DFA for the lazy
+    strategies, the per-class CSR for the active-set engine, and the dense
+    (C, S+1, K) table only for ``collect_positions``, whose native walk
+    reads it (for a large NFA it is many gigabytes).
+    """
+
+    def __init__(self, aut: CsrAutomaton, config: EngineConfig = DEFAULT_CONFIG,
+                 strategy: str = "lazy", device=None):
+        if strategy not in NFA_STRATEGIES:
+            raise ValueError(f"strategy must be one of {NFA_STRATEGIES}, "
+                             f"got {strategy!r}")
+        self.automaton = aut
+        self.config = config
+        self.strategy = strategy
+        self.device = _resolve_device(device)
+        self._lazy = None
+        self._csr: NfaCsr | None = None
+        self._tables: NfaTables | None = None
+
+    @property
+    def lazy_dfa(self):
+        if self._lazy is None:
+            self._lazy = native.lazy_dfa(self.automaton)
+        return self._lazy
+
+    @property
+    def csr(self) -> NfaCsr:
+        """K4's successor lists, on the matcher's device."""
+        if self._csr is None:
+            self._csr = build_nfa_csr(self.automaton, self.device)
+        return self._csr
+
+    @property
+    def tables(self) -> NfaTables:
+        """The dense successor table, on the host (the native walk reads it)."""
+        if self._tables is None:
+            self._tables = build_nfa_tables(self.automaton)
+        return self._tables
+
+    @property
+    def num_states(self) -> int:
+        return self.automaton.num_states
+
+    def scan(self, data, collect_positions: bool = False) -> ScanReport:
+        streams = _as_streams(data)
+        counts = np.zeros((len(streams), self.num_states), dtype=np.int64)
+        with Timer() as t:
+            if self.strategy == "lazy" and len(streams) > 1:
+                # all streams walked concurrently, exact per stream
+                counts[:], _ = self.lazy_dfa.host_scan_batch(streams)
+            elif self.strategy == "lazy":
+                for i, stream in enumerate(streams):
+                    counts[i], _, _ = self.lazy_dfa.host_scan(stream)
+            elif self.strategy == "lazy-device":
+                for i, stream in enumerate(streams):
+                    counts[i] = lazy_nfa_scan(self.lazy_dfa, stream,
+                                              device=self.device).counts
+            elif streams:
+                c, _ = self._scan_active(streams)
+                counts[:] = c[:, : self.num_states].cpu().numpy()
+        positions = ([self._positions(st) for st in streams]
+                     if collect_positions else None)
+        m = RunMetrics(
+            engine=f"nfa-{self.strategy}",
+            bytes_scanned=sum(len(s_) for s_ in streams),
+            streams=len(streams),
+            matches=int(counts.sum()),
+            wall_seconds=t.seconds,
+        )
+        return ScanReport(counts=counts, total=int(counts.sum()),
+                          match_positions=positions, metrics=m)
+
+    def _scan_active(self, streams, active=None, counts=None):
+        """All streams through K4, ``chunk_bytes`` of each per launch, the
+        carry (lists, counts) kept on the device. ``active`` (N, A) and
+        ``counts`` (N, S+1) resume from a carry. Returns (counts (N, S+1)
+        int32, final lists (N, A) int32); raises when any chunk overflowed
+        the active bound."""
+        csr, dev = self.csr, self.device
+        n, bound = len(streams), self.config.active_bound
+        if active is None:
+            active = initial_active(csr.num_states, bound, n, dev)
+        if counts is None:
+            counts = torch.zeros((n, csr.num_states + 1), dtype=torch.int32,
+                                 device=dev)
+        lens = np.array([len(s_) for s_ in streams], dtype=np.int64)
+        cb = self.config.chunk_bytes
+        overflowed = torch.zeros(n, dtype=torch.bool, device=dev)
+        for off in range(0, max(int(lens.max()), 1), cb):
+            parts = [s_[off : off + cb] for s_ in streams]
+            sizes = np.array([len(p_) for p_ in parts], dtype=np.int64)
+            flat = np.concatenate(parts) if sizes.sum() else np.zeros(0, np.uint8)
+            starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+            res = nfa_scan_streams(csr, host_to_device(flat, dev), starts,
+                                   sizes, bound, active, counts)
+            counts, active = res.counts, res.final_active
+            overflowed |= res.overflowed
+        if bool(overflowed.any()):
+            raise RuntimeError("active-set bound exceeded; raise "
+                               "EngineConfig.active_bound")
+        return counts, active
+
+    def _positions(self, stream: np.ndarray) -> np.ndarray:
+        """Match byte offsets via the native active-set walk."""
+        t = self.tables
+        return native.nfa_match_positions(
+            t.delta.numpy(), t.class_of.numpy(), t.accept.numpy(),
+            np.ascontiguousarray(stream, dtype=np.uint8),
+            active_cap=self.config.active_bound,
+        )
+
+    def stream_scanner(self, resume: dict | None = None):
+        """``"lazy"`` carries (counts, subset members, offset); the other
+        strategies carry the active-set engine's (list, counts, offset)."""
+        if self.strategy == "lazy":
+            return LazyStreamScanner(self, resume)
+        return NfaStreamScanner(self, resume)
+
+
+class NfaStreamScanner:
+    """Incremental scanning on the active-set engine with an O(S) carry:
+    the active list (A,) int32, the counts (S+1,) int32 and the offset. The
+    checkpoint has the JAX package's keys and dtypes, so either package
+    resumes the other's."""
+
+    def __init__(self, matcher: NfaMatcher, resume: dict | None = None):
+        self.m = matcher
+        resume = resume or {}
+        # a checkpoint taken before the first feed() has no carry arrays
+        active, counts = resume.get("active"), resume.get("counts")
+        dev = matcher.device
+        self.active = (None if active is None else
+                       torch.tensor(np.asarray(active, np.int32), device=dev))
+        self.counts = (None if counts is None else
+                       torch.tensor(np.asarray(counts, np.int32), device=dev))
+        self.offset = int(resume.get("offset", 0))
+
+    def feed(self, data) -> None:
+        stream = _as_streams(data)[0]
+        counts, active = self.m._scan_active(
+            [stream],
+            None if self.active is None else self.active.reshape(1, -1),
+            None if self.counts is None else self.counts.reshape(1, -1),
+        )
+        self.active, self.counts = active[0], counts[0]
+        self.offset += len(stream)
+
+    def checkpoint(self) -> dict:
+        return {
+            "active": None if self.active is None else self.active.cpu().numpy(),
+            "counts": None if self.counts is None else self.counts.cpu().numpy(),
+            "offset": self.offset,
+        }
+
+    @property
+    def state_counts(self) -> np.ndarray:
+        if self.counts is None:
+            return np.zeros(self.m.num_states, dtype=np.int64)
+        return self.counts[: self.m.num_states].cpu().numpy().astype(np.int64)
+
+
+class LazyStreamScanner:
+    """Incremental scanning on the lazy subset DFA; the carry is the
+    per-NFA-state counts, the subset's NFA members and the offset. Members,
+    not the interning-order subset id, make a checkpoint portable across
+    processes and packages."""
+
+    def __init__(self, matcher: NfaMatcher, resume: dict | None = None):
+        self.m = matcher
+        if resume is None:
+            self.counts = np.zeros(matcher.num_states, dtype=np.int64)
+            self.state_id = matcher.lazy_dfa.start
+            self.offset = 0
+        else:
+            self.counts = np.array(resume["counts"], dtype=np.int64)
+            members = tuple(int(x) for x in np.asarray(resume["state_set"]))
+            self.state_id = matcher.lazy_dfa._intern(members)
+            self.offset = int(resume["offset"])
+
+    def feed(self, data) -> None:
+        stream = _as_streams(data)[0]
+        self.counts, self.state_id, n = self.m.lazy_dfa.host_scan(
+            stream, self.state_id, self.counts)
+        self.offset += n
+
+    def checkpoint(self) -> dict:
+        return {
+            "counts": np.array(self.counts),
+            "state_set": np.array(self.m.lazy_dfa._sets[self.state_id],
+                                  dtype=np.int64),
+            "offset": self.offset,
+        }
+
+    @property
+    def state_counts(self) -> np.ndarray:
+        return np.array(self.counts)
+
+
+def compile_ruleset(source: str | CsrAutomaton,
+                    config: EngineConfig = DEFAULT_CONFIG,
+                    strategy: str = "lazy", device=None) -> NfaMatcher:
+    """Load a reference-format ``.coe`` ruleset (or a CsrAutomaton) into the
+    bit-exact NFA engine."""
+    aut = load_coe(source) if isinstance(source, str) else source
+    return NfaMatcher(aut, config, strategy, device)

@@ -208,9 +208,10 @@ def chip_smoke_imports():
 
 
 def test_port_imports_no_jax():
-    """The machine with the card has no JAX: the port, its API and
-    chip_smoke.py must not import it, directly or through the JAX package's
-    engines; chip_smoke.py imports nothing of the JAX package at all."""
+    """The machine with the card has no JAX: the port, its API (the NFA
+    matcher and its device engines included) and chip_smoke.py must not
+    import it, directly or through the JAX package's engines; chip_smoke.py
+    imports nothing of the JAX package at all."""
     names = chip_smoke_imports()
     assert "regex_fpga_tpu_torch.api" in names
     assert not [n for n in names if n == "jax" or n.startswith("jax.")
@@ -227,8 +228,19 @@ def test_port_imports_no_jax():
         "        getattr(importlib.import_module(mod), attr)\n"
         "import regex_fpga_tpu_torch.ops.dfa_engine\n"
         "import regex_fpga_tpu_torch.ops.kgram\n"
+        "import regex_fpga_tpu_torch.ops.dfa_take\n"
+        "import regex_fpga_tpu_torch.ops.hopper_nfa\n"
+        "import regex_fpga_tpu_torch.ops.lazy_scan\n"
+        "import regex_fpga_tpu_torch.ops.nfa_engine\n"
+        "import regex_fpga_tpu_torch.native\n"
         "m = regex_fpga_tpu_torch.api.compile_tokenizer(device='cpu')\n"
         "assert m.count(b'hello world') == m.scan(b'hello world').total\n"
+        "from regex_fpga_tpu_torch.models import regexes_to_csr\n"
+        "aut = regexes_to_csr([b'wor', b'l+d'])[0]\n"
+        "for st in ('lazy', 'lazy-device', 'active-set'):\n"
+        "    nm = regex_fpga_tpu_torch.api.compile_ruleset(aut, strategy=st, device='cpu')\n"
+        "    assert nm.scan([b'hello world!', b'world']).total == 3\n"
+        "    nm.stream_scanner().feed(b'hello world')\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('regex_fpga_tpu.ops') or k == 'regex_fpga_tpu.api')\n"
         "assert not bad, bad\n"

@@ -1,5 +1,6 @@
-"""The Hopper kernels K1 (dfa_chain), K2 (dfa_chain_counts) and K3
-(kgram_chain) against their plain versions, on the card, bit for bit.
+"""The Hopper kernels K1 (dfa_chain), K2 (dfa_chain_counts), K3
+(kgram_chain) and K4 (nfa_active_scan) against their plain versions, on the
+card, bit for bit.
 
 Every test here needs a CUDA card and nvcc and skips without them. The file
 imports no JAX and no conftest helper, so that it runs where JAX is absent:
@@ -11,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram
+from regex_fpga_tpu_torch.models import CsrAutomaton, gen_l7_traffic, l7_corpus_nfa
+from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram, hopper_nfa
+from regex_fpga_tpu_torch.ops.nfa_engine import initial_active
+from regex_fpga_tpu_torch.ops.tables import build_nfa_csr
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +48,7 @@ SHAPES = [  # (C, S, B, NB, class dtype, block-major storage)
     (36, 836, 64, 4096, torch.int32, False),    # keyword AC-sized table
     (256, 1024, 64, 4096, torch.uint8, True),   # table above shared memory
     (37, 5, 33, 77, torch.int16, False),        # ragged edges everywhere
+    (83, 2049, 256, 1024, torch.uint8, True),   # a lazy-DFA snapshot's shape
 ]
 
 
@@ -146,3 +151,66 @@ def test_api_on_card_matches_cpu(cuda):
     want = on_cpu.scan(text, collect_positions=True)
     np.testing.assert_array_equal(got.match_positions[0],
                                   want.match_positions[0])
+
+
+def random_nfa(rng, n_states, n_edges, n_accept, n_bytes=256):
+    """A random CSR NFA whose accepting states have no out-edges."""
+    accept = rng.choice(np.arange(1, n_states), size=n_accept, replace=False)
+    src = np.sort(rng.choice(np.setdiff1d(np.arange(n_states), accept),
+                             size=n_edges))
+    return CsrAutomaton(
+        offsets=np.searchsorted(src, np.arange(n_states + 1)).astype(np.int64),
+        trans_char=rng.integers(0, n_bytes, size=n_edges).astype(np.uint8),
+        trans_target=rng.integers(0, n_states, size=n_edges).astype(np.int32),
+    )
+
+
+def l7_case(rng):
+    return (l7_corpus_nfa(),
+            np.frombuffer(b"".join(gen_l7_traffic()[0]), np.uint8))
+
+
+def random_case(n_states, n_edges, n_bytes):
+    """A random NFA over the first n_bytes byte values, and bytes of them."""
+    def make(rng):
+        aut = random_nfa(rng, n_states, n_edges, n_states // 10, n_bytes)
+        return aut, rng.integers(0, n_bytes, size=5000).astype(np.uint8)
+    return make
+
+
+NFAS = {  # name -> (automaton, bytes) from a seeded generator
+    "random": random_case(60, 2000, 16),
+    "two-byte alphabet": random_case(40, 240, 2),  # every list overflows
+    "40,000 states": random_case(40_000, 200_000, 4),
+    "l7 corpus": l7_case,
+}
+
+
+@pytest.mark.parametrize("name", list(NFAS))
+@pytest.mark.parametrize("bound", [1, 4, 32, 128])
+def test_nfa_active_scan_matches_plain(cuda, name, bound):
+    """Ragged streams (0 to 2,000 bytes), overflow at small bounds, start
+    counts of any value and one unsorted start list with duplicates."""
+    rng = np.random.default_rng(bound)
+    aut, data = NFAS[name](rng)
+    s = aut.num_states
+    csr = build_nfa_csr(aut, device=cuda)
+    lens = np.array([0, 1, 31, 32, 33, 700, 2000, 1999])
+    starts = rng.integers(0, len(data) - 2000, size=len(lens))
+    active = initial_active(s, bound, len(lens), cuda)
+    active[-1] = torch.as_tensor(rng.integers(0, s + 1, size=bound), device=cuda)
+    counts = torch.as_tensor(rng.integers(0, 1000, size=(len(lens), s + 1))
+                             .astype(np.int32), device=cuda)
+    dev_data = torch.as_tensor(np.array(data), device=cuda)
+    before = hopper_nfa.LAUNCHES["nfa_active_scan"]
+    got = hopper_nfa.nfa_active_scan(csr, dev_data, starts, lens, active, counts)
+    assert hopper_nfa.LAUNCHES["nfa_active_scan"] == before + 1
+    want = hopper_nfa.nfa_active_scan_plain(csr, dev_data, starts, lens,
+                                            active, counts)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if name == "two-byte alphabet" and bound <= 4:
+        assert bool(want[2].any())  # the overflow path ran
+    if name == "l7 corpus" and bound == 128:
+        assert not bool(want[2].any())
