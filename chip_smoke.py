@@ -14,9 +14,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. kernels: K1 (dfa_chain, all three modes), K2 (dfa_chain_counts, single
    and per-stream) and K3 (kgram_chain) against their plain PyTorch
    versions on the card at the main path's shapes, bit for bit, with the
-   time of each; then K1/K2 on a lazy-DFA snapshot of the Snort-corpus NFA
-   and K4 (nfa_active_scan) on the l7-corpus NFA, a forced overflow
-   included;
+   time, the bound and the route (table placement and narrowing, lanes per
+   CTA) of each; then K1/K2 on a lazy-DFA snapshot of the Snort-corpus NFA
+   (the narrowed shared table) and K4 (nfa_active_scan) on both of its
+   routes: the l7-corpus NFA (CSR in shared memory, a forced overflow
+   included) and a Snort-corpus prefix (CSR in global memory); then K4
+   alone on the main path's 64 flows of 1 MiB;
 3. DFA main path: the tokenizer and a 300-keyword Aho-Corasick matcher
    through the port's API at a 64 MiB chunk and 65,536 lanes, each call
    timed as the median of REPEATS runs; every result is held to the same
@@ -75,6 +78,10 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
     "nfa_active_scan": ("cuda", "regex_fpga_tpu_torch/csrc/nfa_active.cu",
                         "regex_fpga_tpu/ops/nfa_engine.py:43"),
 }
+# no single PyTorch call computes a chain pass or an active-set step, so
+# there is no library call to time beside the kernels
+LIBRARY_MS = None
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 DFA_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain")
 NFA_PATH = ("dfa_chain", "dfa_chain_counts", "nfa_active_scan")
 
@@ -120,6 +127,18 @@ def max_abs_err(got, want) -> int:
             d = (g.long() - w.long()).abs()
             err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(inputs, outputs) -> float:
+    """The least time the card could take: every input read once and every
+    output written once at the device-memory rate. A chain pass does one
+    dependent table lookup per byte and no arithmetic worth a peak rate, so
+    the bytes bound it."""
+    return (nbytes(*inputs) + nbytes(*outputs)) / HBM_BYTES_PER_S * 1e3
 
 
 def launch_counters() -> dict:
@@ -218,7 +237,7 @@ def phase_kernels(dev, tok_tables, ac_tables):
         cls_seq = cls.T if block_major else cls
         ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32),
                               device=dev)
-        route = hd.dfa_chain_route("counts", c, s, nb, 64)
+        route = hd.dfa_chain_route("counts", c, s, nb, 64, dtype)
         for mode in hd.MODES:
             e = max_abs_err(hd.dfa_chain(t.table, t.accept, cls_seq, ent, mode),
                             hd.dfa_chain_plain(t.table, t.accept, cls_seq, ent, mode))
@@ -230,10 +249,11 @@ def phase_kernels(dev, tok_tables, ac_tables):
             errs["dfa_chain_counts"] = max(errs["dfa_chain_counts"], e)
         torch.cuda.synchronize()
         print(f"kernels: {name} S={s} C={c} {nb}x{b} {str(dtype)[6:]} "
-              f"{'block' if block_major else 'time'}-major, table in "
-              f"{'shared' if route['table_smem'] else 'global'} memory: "
-              f"K1 x3 modes, K2 single and 64 streams bit-exact against "
-              f"plain (tolerance 0)", flush=True)
+              f"{'block' if block_major else 'time'}-major, table "
+              f"{route['table']}, histogram "
+              f"{'shared' if route['hist_smem'] else 'global'}, "
+              f"{route['lanes_per_cta']} lanes per CTA: K1 x3 modes, K2 single "
+              f"and 64 streams bit-exact against plain (tolerance 0)", flush=True)
 
     # K3 at the tokenizer's level-2 k-gram shape: 64 MiB of text = 2^24 steps
     kg = build_kgram(tok_tables, levels=2)
@@ -301,13 +321,26 @@ def phase_kernels(dev, tok_tables, ac_tables):
         "dfa_chain_counts[random S=1024, global table]":
             lambda: hd.dfa_chain_counts(bt, ba, rnd_cls, ent),
     }
+    fin = torch.empty(nb, dtype=torch.int32, device=dev)
+    bounds = {
+        "dfa_chain": bound_ms((cls, tt, ta, ent), (fin,)),
+        "dfa_chain_counts": bound_ms((cls, tt, ta, ent), (fin, torch.empty(
+            tt.shape[1], dtype=torch.int32, device=dev))),
+        "kgram_chain": bound_ms((ck, kg_ta, ent), (fin, fin)),
+    }
     results = {}
     for name in DFA_PATH:
         ms = event_ms(timing[name], 20)
         plain_ms = event_ms(plain[name], 2)
-        results[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
-        print(f"time: {name} {ms:.4f} ms, plain {plain_ms:.2f} ms "
-              f"({64 * MIB / ms / 1e6:.1f} GB/s of text)", flush=True)
+        results[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bounds[name], "bound_by": "bytes",
+                         "library_ms": LIBRARY_MS,
+                         "shape": "tokenizer (S=23), 65,536 lanes x "
+                                  + ("256 k-gram steps" if name == "kgram_chain"
+                                     else "1,024 steps")}
+        print(f"time: {name} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{bounds[name]:.4f} ms ({64 * MIB / ms / 1e6:.1f} GB/s of text)",
+              flush=True)
     for name, fn in extra.items():
         ms = event_ms(fn, 20)
         print(f"time: {name} {ms:.4f} ms ({64 * MIB / ms / 1e6:.1f} GB/s of text)",
@@ -327,12 +360,15 @@ def one_run_ms(fn) -> tuple[object, float]:
     return out, t0.elapsed_time(t1)
 
 
-def phase_nfa_kernels(dev, snort_ld, snort_bytes, l7_aut, l7_bytes):
+def phase_nfa_kernels(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
+                      results):
     """K1/K2 at the lazy-device path's shape (1,024 lanes x 4,096 steps of a
     4 MiB chunk) on the snapshot of the warmed Snort-corpus lazy DFA, and K4
     on the l7-corpus NFA (4 streams of 16 KiB; bound 128, and bound 4, which
-    overflows), each against its plain version, bit for bit. Returns K4's
-    {"max_abs_err", "ms", "plain_ms"}."""
+    overflows; CSR in shared memory) and on a Snort-corpus prefix (CSR in
+    global memory), each against its plain version, bit for bit; then K4
+    alone on the main path's 64 flows of 1 MiB. Adds the lazy shape to K1's
+    and K2's entries of ``results`` and K4's entry."""
     from regex_fpga_tpu_torch.ops import hopper_dfa as hd
     from regex_fpga_tpu_torch.ops import hopper_nfa as hn
     from regex_fpga_tpu_torch.ops.lazy_scan import _pad_for
@@ -358,51 +394,107 @@ def phase_nfa_kernels(dev, snort_ld, snort_bytes, l7_aut, l7_bytes):
     err = max(err, max_abs_err(hd.dfa_chain_counts(table, accept, cls, ent),
                                hd.dfa_chain_counts_plain(table, accept, cls, ent)))
     check(err == 0, f"K1/K2 on the lazy table differ from plain by {err}")
-    route = hd.dfa_chain_route("finals", c, m1)
+    route = hd.dfa_chain_route("finals", c, m1, nb)
+    croute = hd.dfa_chain_route("counts", c, m1, nb)
+    fin = torch.empty(nb, dtype=torch.int32, device=dev)
+    hist = torch.empty(m1, dtype=torch.int32, device=dev)
     lazy_times = {
-        "dfa_chain[finals]": (lambda: hd.dfa_chain(table, accept, cls, ent),
-                              lambda: hd.dfa_chain_plain(table, accept, cls, ent)),
+        "dfa_chain": (lambda: hd.dfa_chain(table, accept, cls, ent),
+                      lambda: hd.dfa_chain_plain(table, accept, cls, ent),
+                      bound_ms((cls, table, accept, ent), (fin,))),
         "dfa_chain_counts": (lambda: hd.dfa_chain_counts(table, accept, cls, ent),
-                             lambda: hd.dfa_chain_counts_plain(table, accept, cls, ent)),
+                             lambda: hd.dfa_chain_counts_plain(table, accept, cls, ent),
+                             bound_ms((cls, table, accept, ent), (fin, hist))),
     }
     print(f"kernels: lazy-DFA snapshot of the Snort-corpus NFA, table "
-          f"({c}, {m1}) int32 in {'shared' if route['table_smem'] else 'global'}"
-          f" memory, {nb}x{b} uint8 block-major: K1 x3 modes and K2 "
-          f"bit-exact against plain (tolerance 0)", flush=True)
-    for name, (fn, plain) in lazy_times.items():
+          f"({c}, {m1}) int32 stored {route['table']} (counts: "
+          f"{croute['table']}, histogram "
+          f"{'shared' if croute['hist_smem'] else 'global'}), "
+          f"{route['lanes_per_cta']} lanes per CTA, {nb}x{b} uint8 "
+          f"block-major: K1 x3 modes and K2 bit-exact against plain "
+          f"(tolerance 0)", flush=True)
+    for name, (fn, plain, bound) in lazy_times.items():
         ms = event_ms(fn, 20)
         _, plain_ms = one_run_ms(plain)
+        results[name]["lazy"] = {"shape": f"lazy table ({c}, {m1}), {nb} lanes "
+                                          f"x {b} steps",
+                                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
         print(f"time: {name}[lazy table ({c}, {m1}), {nb}x{b}] {ms:.4f} ms, "
-              f"plain {plain_ms:.2f} ms ({nb * b / ms / 1e6:.2f} GB/s of text)",
-              flush=True)
+              f"plain {plain_ms:.2f} ms, bound {bound:.5f} ms "
+              f"({nb * b / ms / 1e6:.2f} GB/s of text)", flush=True)
+    # the fixed cost of a launch (table fill, first window): one window
+    short = cls[:32]
+    ms = event_ms(lambda: hd.dfa_chain(table, accept, short, ent), 20)
+    print(f"time: dfa_chain[lazy table ({c}, {m1}), {nb}x32] {ms:.4f} ms "
+          f"(table fill and one window)", flush=True)
 
+    err = 0
+    k4 = {}
+    # (label, automaton, bytes, streams, bytes each, {bound: whether the
+    # streams overflow: "none", "some" or "any"}); the Snort-corpus lists
+    # outgrow 128 states on its traffic
+    for label, aut, corpus, n, size, bounds in (
+            ("l7-corpus", l7_aut, l7_bytes, 4, 16 * 1024, {128: "none", 4: "some"}),
+            ("Snort-corpus", snort_aut, snort_bytes, 2, 1024, {128: "any"})):
+        csr = build_nfa_csr(aut, device=dev)
+        s = aut.num_states
+        data = torch.as_tensor(np.array(corpus[: 64 * size]), device=dev)
+        starts = rng.integers(0, 63 * size, size=n)
+        lens = np.full(n, size)
+        for bound, must in bounds.items():
+            kr = hn.nfa_active_route(csr, n, bound)
+            act = initial_active(s, bound, n, dev)
+            cnt = torch.zeros((n, s + 1), dtype=torch.int32, device=dev)
+            got = hn.nfa_active_scan(csr, data, starts, lens, act, cnt)
+            want, plain_ms = one_run_ms(
+                lambda: hn.nfa_active_scan_plain(csr, data, starts, lens, act, cnt))
+            err = max(err, max_abs_err(got, want))
+            overflowed = int(want[2].sum())
+            check(must == "any" or (overflowed == 0) == (must == "none"),
+                  f"K4 {label} bound {bound}: {overflowed} streams overflowed")
+            ms = event_ms(lambda: hn.nfa_active_scan(csr, data, starts, lens, act, cnt), 10)
+            sel = data[: n * size]  # the bytes read, for the bound
+            k4[(label, bound)] = {
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms((sel, csr.offsets, csr.targets, csr.class_of,
+                                      csr.accept, act, cnt), (cnt, act, want[2])),
+                "shape": f"{label} NFA, {n} streams x {size // 1024} KiB, bound {bound}"}
+            print(f"kernels: K4 {label} NFA S={s} C={csr.num_classes} "
+                  f"E={csr.targets.shape[0]}, CSR "
+                  f"{'shared (uint16)' if kr['csr_smem'] else 'global'}, counts "
+                  f"{'shared' if kr['counts_smem'] else 'global'}, "
+                  f"{kr['streams_per_cta']} stream(s) per CTA; {n} streams x "
+                  f"{size // 1024} KiB, bound {bound}: {overflowed} overflowed, "
+                  f"counts, lists and flags bit-exact against plain (tolerance 0); "
+                  f"{ms:.4f} ms, plain {plain_ms:.2f} ms", flush=True)
+    check(err == 0, f"nfa_active_scan differs from its plain version by {err}")
+
+    # K4 alone at the main path's shape (the plain version would take hours)
     csr = build_nfa_csr(l7_aut, device=dev)
     s = l7_aut.num_states
-    n, size = 4, 16 * 1024
-    data = torch.as_tensor(np.array(l7_bytes[: 64 * size]), device=dev)
-    starts = rng.integers(0, 63 * size, size=n)
-    lens = np.full(n, size)
-    err = 0
-    results = {}
-    for bound in (128, 4):
-        act = initial_active(s, bound, n, dev)
-        cnt = torch.zeros((n, s + 1), dtype=torch.int32, device=dev)
-        got = hn.nfa_active_scan(csr, data, starts, lens, act, cnt)
-        want, plain_ms = one_run_ms(
-            lambda: hn.nfa_active_scan_plain(csr, data, starts, lens, act, cnt))
-        err = max(err, max_abs_err(got, want))
-        overflowed = int(want[2].sum())
-        check(overflowed == 0 if bound == 128 else overflowed > 0,
-              f"K4 bound {bound}: {overflowed} streams overflowed")
-        ms = event_ms(lambda: hn.nfa_active_scan(csr, data, starts, lens, act, cnt), 10)
-        results[bound] = (ms, plain_ms)
-        print(f"kernels: K4 l7-corpus NFA S={s} C={csr.num_classes}, {n} streams "
-              f"x 16 KiB, bound {bound}: {overflowed} overflowed, counts, lists "
-              f"and flags bit-exact against plain (tolerance 0); {ms:.4f} ms, "
-              f"plain {plain_ms:.2f} ms", flush=True)
-    check(err == 0, f"nfa_active_scan differs from its plain version by {err}")
-    ms, plain_ms = results[128]
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    flows = torch.as_tensor(np.array(l7_bytes), device=dev)
+    starts = rng.integers(0, 63 * MIB, size=64)
+    lens = np.full(64, MIB)
+    act = initial_active(s, 128, 64, dev)
+    cnt = torch.zeros((64, s + 1), dtype=torch.int32, device=dev)
+    kr = hn.nfa_active_route(csr, 64, 128)
+    out = hn.nfa_active_scan(csr, flows, starts, lens, act, cnt)
+    check(not bool(out[2].any()), "K4 64 x 1 MiB: no overflow")
+    ms = event_ms(lambda: hn.nfa_active_scan(csr, flows, starts, lens, act, cnt), 3)
+    big_bound = bound_ms((flows[: 64 * MIB], csr.offsets, csr.targets, csr.class_of,
+                          csr.accept, act, cnt), (cnt, act, out[2]))
+    print(f"time: nfa_active_scan[l7-corpus NFA, 64 flows x 1 MiB, bound 128, "
+          f"{kr['streams_per_cta']} stream(s) per CTA] {ms:.2f} ms, bound "
+          f"{big_bound:.4f} ms ({ms / MIB * 1e6:.1f} ns per byte per stream)",
+          flush=True)
+    main = k4[("l7-corpus", 128)]
+    return {"max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": LIBRARY_MS, "shape": main["shape"],
+            "main_path": {"shape": "l7-corpus NFA, 64 flows x 1 MiB, bound 128",
+                          "ms": ms, "bound_ms": big_bound},
+            "other_routes": [dict(v) for k, v in k4.items()
+                             if k != ("l7-corpus", 128)]}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -684,8 +776,7 @@ def main(argv=None) -> int:
 
     phase_device(args.out)
 
-    from regex_fpga_tpu_torch import native
-    from regex_fpga_tpu_torch.models import (build_aho_corasick,
+    from regex_fpga_tpu_torch.models import (LazyDfa, build_aho_corasick,
                                              build_tokenizer_dfa, gen_l7_traffic,
                                              gen_traffic, l7_corpus_nfa,
                                              snort_corpus_nfa)
@@ -701,14 +792,14 @@ def main(argv=None) -> int:
     snort_aut, l7_aut = snort_corpus_nfa(), l7_corpus_nfa()
     snort_bytes = tiled(b"".join(gen_traffic()[0]), 64 * MIB)
     l7_bytes = tiled(b"".join(gen_l7_traffic()[0]), 64 * MIB)
-    snort_ld = native.lazy_dfa(snort_aut)
+    snort_ld = LazyDfa(snort_aut)
     snort_ld.host_scan(snort_bytes[:4 * MIB])
     print(f"nfa: Snort-corpus NFA S={snort_aut.num_states}, l7-corpus NFA "
           f"S={l7_aut.num_states}, Snort lazy DFA warmed to "
           f"{snort_ld.num_states} subset states "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     kernel_times["nfa_active_scan"] = phase_nfa_kernels(
-        dev, snort_ld, snort_bytes, l7_aut, l7_bytes)
+        dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes, kernel_times)
 
     dfa_launches, calls = phase_main_path(dev)
     nfa_launches, nfa_calls = phase_nfa_path(dev, snort_aut, snort_bytes,

@@ -8,12 +8,14 @@ path, is a CUDA kernel written by hand for Hopper (``csrc/``), built with
 has a plain PyTorch version beside it that CPU tensors take. The JAX
 package is the reference: the port's results equal its results bit for bit.
 
-The numpy-only layers of the JAX package are imported as they are, not
-copied: its automaton code through ``regex_fpga_tpu_torch.models``,
-``regex_fpga_tpu.utils.{config,metrics}`` in ``api`` (which re-exports
-``EngineConfig``), and ``regex_fpga_tpu.utils.native``'s bindings, to which
-``native`` hands a build of the C++ walker made from source. This package
-never imports ``jax``.
+The port imports nothing of the JAX package and never imports ``jax``. It
+keeps its own copies of the numpy-only code it needs: the automaton
+builders in ``models/``, ``EngineConfig`` and the run metrics in
+``utils/``, and the bindings of the C++ host walker in ``native``, which
+builds that walker from source.
+
+Entry points run on the first CUDA card unless the caller passes
+``device="cpu"``; with no card visible and no device given they raise.
 """
 
 __version__ = "0.1.0"

@@ -86,12 +86,16 @@ def library() -> ctypes.CDLL:
         p, i, ll, ll, p, p, i, i, p, i, i, p, p, p, ll, ll, p,
     ]
     lib.dfa_chain_counts.argtypes = [p, i, ll, ll, p, p, i, i, p, i, i, p, p, i, p]
-    lib.dfa_chain_route.argtypes = [i, i, i, i, i]
+    lib.dfa_chain_route.argtypes = [i, i, i, i, i, i]
+    lib.dfa_chain_lanes_per_cta.argtypes = []
     lib.kgram_chain.argtypes = [p, i, ll, ll, p, i, i, p, i, i, p, p, p]
     lib.kgram_chain_route.argtypes = [i, i]
-    lib.nfa_active_scan.argtypes = [p, p, p, i, p, p, p, p, i, i, p, p, p, p]
+    lib.nfa_active_scan.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
+    lib.nfa_active_route.argtypes = [i, i, i, i, i]
     for fn in (lib.dfa_chain, lib.dfa_chain_counts, lib.dfa_chain_route,
-               lib.kgram_chain, lib.kgram_chain_route, lib.nfa_active_scan):
+               lib.dfa_chain_lanes_per_cta, lib.kgram_chain,
+               lib.kgram_chain_route, lib.nfa_active_scan,
+               lib.nfa_active_route):
         fn.restype = i
     return lib
 

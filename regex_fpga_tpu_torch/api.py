@@ -33,14 +33,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from regex_fpga_tpu.utils.config import EngineConfig, shrink_blocks
-from regex_fpga_tpu.utils.metrics import RunMetrics, Timer
-
 from . import native
 from .models import (
     GPT2_PRESPLIT,
     CompiledDfa,
     CsrAutomaton,
+    LazyDfa,
     TokenizerDfa,
     build_tokenizer_dfa,
     compile_pattern,
@@ -69,8 +67,11 @@ from .ops.tables import (
     build_nfa_csr,
     build_nfa_tables,
     host_to_device,
+    resolve_device,
     stall_extend,
 )
+from .utils.config import EngineConfig, shrink_blocks
+from .utils.metrics import RunMetrics, Timer
 
 __all__ = [
     "DEFAULT_CONFIG",
@@ -118,13 +119,6 @@ def _as_streams(data) -> list[np.ndarray]:
             for s in data]
 
 
-def _resolve_device(device) -> torch.device:
-    """``None`` means the first CUDA card when there is one, else the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
-
-
 class _FallbackResult(NamedTuple):
     counts: torch.Tensor      # (S,) int64 per-state match counts
     match_mask: torch.Tensor  # (L,) bool: accept fired before byte i
@@ -157,7 +151,7 @@ class DfaMatcher:
                 "use 'device'"
             )
         self.config = config
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.tables = tables.to(self.device)
         # byte -> class on the device: class ids always fit one byte
         # (C <= 256), so chunks upload as raw bytes and map there
@@ -705,7 +699,7 @@ class NfaMatcher:
         self.automaton = aut
         self.config = config
         self.strategy = strategy
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self._lazy = None
         self._csr: NfaCsr | None = None
         self._tables: NfaTables | None = None
@@ -713,7 +707,7 @@ class NfaMatcher:
     @property
     def lazy_dfa(self):
         if self._lazy is None:
-            self._lazy = native.lazy_dfa(self.automaton)
+            self._lazy = LazyDfa(self.automaton)
         return self._lazy
 
     @property

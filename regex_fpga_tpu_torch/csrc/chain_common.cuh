@@ -7,9 +7,11 @@
 // block-major (NB, B) rows of a stream cut into blocks, without a transpose.
 //
 // One thread carries one lane. Each CTA takes LANES consecutive lanes and
-// stages WIN steps of their class ids in shared memory, loaded so that
-// neighbouring threads read neighbouring addresses whichever stride is 1.
-// The per-step outputs are staged the same way and stored coalesced.
+// stages WIN steps of their class ids in shared memory: load_window loads
+// them so that neighbouring threads read neighbouring addresses whichever
+// stride is 1 (kgram_chain.cu; dfa_chain.cu stages them with cp.async
+// instead). The per-step outputs are staged the same way and stored
+// coalesced.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,25 +1,29 @@
-"""Automaton builders: the JAX package's numpy-only ``models`` layer.
+"""Automaton builders of the port: its own copies of the JAX package's
+numpy-only ``regex_fpga_tpu/models`` modules.
 
-The port shares these with the JAX package instead of copying them: they
-import numpy and nothing of JAX. Every part of the port, and every script
-that drives it, takes them from here, so the port reaches the JAX package
-at this one place (and at ``regex_fpga_tpu.utils`` in ``api`` and
-``native``).
+The port imports nothing of the JAX package. The modules here are copies of
+the ones the port and ``chip_smoke.py`` use (``coe``, ``csr``,
+``export_csr``, ``regex``, ``lazy_dfa``, ``literals``, ``oracle``,
+``snort``, ``snort_corpus``, ``l7_corpus``, ``tokenizer_dfa``), with their
+relative imports; ``tests/test_torch_models.py`` holds each to its original
+on seeded inputs. ``LazyDfa`` differs in one point: its host walks run on the
+portable native build (``regex_fpga_tpu_torch.native``) and never on a
+Python loop.
 
 Also the two IDS automata built from the repository's generated corpora,
 which ``chip_smoke.py`` and the tests scan.
 """
 
-from regex_fpga_tpu.models.coe import write_coe
-from regex_fpga_tpu.models.csr import CsrAutomaton, byte_classes, load_coe
-from regex_fpga_tpu.models.export_csr import regexes_to_csr
-from regex_fpga_tpu.models.l7_corpus import gen_l7_patterns, gen_l7_traffic
-from regex_fpga_tpu.models.lazy_dfa import LazyDfa
-from regex_fpga_tpu.models.literals import AhoCorasick, build_aho_corasick
-from regex_fpga_tpu.models.oracle import dfa_step_table, nfa_scan
-from regex_fpga_tpu.models.snort import parse_snort_rules
-from regex_fpga_tpu.models.snort_corpus import gen_community_rules, gen_traffic
-from regex_fpga_tpu.models.regex import (
+from .coe import write_coe
+from .csr import CsrAutomaton, byte_classes, load_coe
+from .export_csr import regexes_to_csr
+from .l7_corpus import gen_l7_patterns, gen_l7_traffic
+from .lazy_dfa import LazyDfa
+from .literals import AhoCorasick, build_aho_corasick
+from .oracle import dfa_step_table, nfa_scan
+from .snort import parse_snort_rules
+from .snort_corpus import gen_community_rules, gen_traffic
+from .regex import (
     CompiledDfa,
     compile_pattern,
     contains_backtrack,
@@ -27,7 +31,7 @@ from regex_fpga_tpu.models.regex import (
     contains_lazy,
     parse_pattern,
 )
-from regex_fpga_tpu.models.tokenizer_dfa import (
+from .tokenizer_dfa import (
     GPT2_PRESPLIT,
     TokenizerDfa,
     build_tokenizer_dfa,

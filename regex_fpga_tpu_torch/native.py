@@ -7,9 +7,10 @@ can die of an illegal instruction on another CPU instead of raising. The
 port never opens that file: at first use it compiles the same source with
 ``g++ -O3 -shared -fPIC`` (portable code for the running architecture) into
 ``build/native/`` at the repository root, under a name that carries a digest
-of the source and the flags, and hands that library to every native helper
-and every ``LazyDfa`` it creates (``lazy_dfa``). A missing ``g++`` or a
-failed build raises; the port never drops to the Python walk.
+of the source and the flags. Every ``LazyDfa`` of the port and
+``nfa_match_positions`` call this library; the JAX package's bindings are
+neither imported nor touched. A missing ``g++`` or a failed build raises;
+the port never drops to a Python walk.
 """
 
 from __future__ import annotations
@@ -24,11 +25,7 @@ from pathlib import Path
 
 import numpy as np
 
-from regex_fpga_tpu.utils import native as _shared
-
-from .models import CsrAutomaton, LazyDfa
-
-__all__ = ["BUILD_DIR", "SOURCE", "GXX_FLAGS", "library", "lazy_dfa",
+__all__ = ["BUILD_DIR", "SOURCE", "GXX_FLAGS", "library",
            "nfa_match_positions"]
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -38,7 +35,7 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    """The ctypes signatures of ``regex_fpga_tpu/utils/native.py``."""
+    """The ctypes signatures of the scanners in ``native/golden_scan.cpp``."""
     i32p = ctypes.POINTER(ctypes.c_int32)
     i16p = ctypes.POINTER(ctypes.c_int16)
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -91,30 +88,45 @@ def _build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The portable walker, built and loaded once per process. It is also
-    installed as the JAX package's native library, so every helper there
-    (``LazyDfa``'s walks, ``nfa_match_positions_native``) calls it instead of
-    opening the committed build."""
+    """The portable walker, built and loaded once per process."""
     lib = ctypes.CDLL(str(_build()))
     _declare(lib)
-    _shared._LIB = lib
     return lib
 
 
-def lazy_dfa(aut: CsrAutomaton) -> LazyDfa:
-    """A lazy subset DFA whose host walks run on the portable library."""
-    lib = library()
-    ld = LazyDfa(aut)
-    ld._native = lib
-    return ld
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def nfa_match_positions(delta: np.ndarray, class_of: np.ndarray,
                         accept: np.ndarray, stream: np.ndarray,
                         active_cap: int) -> np.ndarray:
     """Byte offsets where an accepting NFA state is active (the native
-    active-set walk over the dense (C, S+1, K) table). Raises on active-set
+    active-set walk over the dense (C, S+1, K) table; oracle timing: one
+    byte late, the final position's accept dropped). Raises on active-set
     overflow. Returns ascending int64 offsets."""
-    library()
-    return _shared.nfa_match_positions_native(delta, class_of, accept, stream,
-                                              active_cap=active_cap)
+    lib = library()
+    _, s1, k = delta.shape
+    s = s1 - 1
+    delta = np.ascontiguousarray(delta, dtype=np.int32)
+    class_of = np.ascontiguousarray(class_of, dtype=np.int32)
+    accept8 = np.ascontiguousarray(accept, dtype=np.uint8)
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    active = np.full(active_cap, s, dtype=np.int32)
+    active[0] = 0
+    cap = max(1024, len(stream) // 4)
+    while True:
+        out = np.empty(cap, dtype=np.int64)
+        n = lib.nfa_match_positions(
+            _ptr(delta, ctypes.c_int32), _ptr(class_of, ctypes.c_int32),
+            _ptr(accept8, ctypes.c_uint8), s, k,
+            _ptr(stream, ctypes.c_uint8), len(stream),
+            _ptr(active, ctypes.c_int32), len(active),
+            _ptr(out, ctypes.c_int64), cap,
+        )
+        if n == -2:
+            raise RuntimeError("native nfa_match_positions: active-set "
+                               "capacity exceeded")
+        if n >= 0:
+            return out[:n]
+        cap = min(cap * 4, len(stream) + 1)

@@ -11,7 +11,7 @@ Layout: ``cls_seq`` is (B, NB), one column per lane, as in the JAX engines.
 Its storage may be either order: a ``blocks.T`` view of a block-major (NB, B)
 stream is read in place, and the full/mask outputs are then stored
 block-major too, so ``states.T.reshape(-1)`` is the stream order without a
-copy.
+copy. A view with neither stride 1 is made contiguous first.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors. Out-of-range states and classes step to state 0 and
@@ -63,8 +63,12 @@ def _check_args(table, accept, cls_seq, entries) -> tuple[int, int]:
     return b, nb
 
 
-def _device_args(table, accept, entries):
-    return table.contiguous(), accept.contiguous(), entries.contiguous()
+def _device_args(table, accept, cls_seq, entries):
+    """Contiguous tables, and class ids with one stride 1 (the kernel
+    stages rows along the contiguous axis)."""
+    if 1 not in cls_seq.stride():
+        cls_seq = cls_seq.contiguous()
+    return table.contiguous(), accept.contiguous(), cls_seq, entries.contiguous()
 
 
 def _like(cls_seq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -94,7 +98,8 @@ def dfa_chain(table, accept, cls_seq, entries, mode: str = "finals"):
     if cls_seq.device.type == "cpu":
         return dfa_chain_plain(table, accept, cls_seq, entries, mode)
     _require_cuda(cls_seq)
-    table, accept, entries = _device_args(table, accept, entries)
+    table, accept, cls_seq, entries = _device_args(table, accept, cls_seq,
+                                                   entries)
     c, s = table.shape
     finals = torch.empty(nb, dtype=torch.int32, device=cls_seq.device)
     states = _like(cls_seq, torch.int32) if mode == "full" else None
@@ -129,7 +134,8 @@ def dfa_chain_counts(table, accept, cls_seq, entries,
     if cls_seq.device.type == "cpu":
         return dfa_chain_counts_plain(table, accept, cls_seq, entries, num_streams)
     _require_cuda(cls_seq)
-    table, accept, entries = _device_args(table, accept, entries)
+    table, accept, cls_seq, entries = _device_args(table, accept, cls_seq,
+                                                   entries)
     c, s = table.shape
     finals = torch.empty(nb, dtype=torch.int32, device=cls_seq.device)
     counts = torch.zeros((n, s), dtype=torch.int32, device=cls_seq.device)
@@ -147,14 +153,20 @@ def dfa_chain_counts(table, accept, cls_seq, entries,
 
 
 def dfa_chain_route(mode: str, num_classes: int, num_states: int,
-                    num_lanes: int = 1, num_streams: int = 1) -> dict:
-    """Where the kernel keeps its table (and histogram) for these shapes on
-    the current card: {"table_smem": bool, "hist_smem": bool}."""
+                    num_lanes: int = 1, num_streams: int = 1,
+                    class_dtype: torch.dtype = torch.uint8) -> dict:
+    """Where the kernel keeps its data for these shapes on the current card:
+    {"table": "shared int32" | "shared uint16" | "global", "table_smem":
+    bool, "hist_smem": bool, "lanes_per_cta": int}."""
     code = {"finals": 0, "full": 1, "mask": 2, "counts": 3}[mode]
-    r = _build.library().dfa_chain_route(
-        code, num_classes, num_states, num_lanes, max(num_lanes // num_streams, 1)
-    )
-    return {"table_smem": bool(r & 1), "hist_smem": bool(r & 2)}
+    lib = _build.library()
+    r = lib.dfa_chain_route(code, _CLASS_DTYPES[class_dtype], num_classes,
+                            num_states, num_lanes,
+                            max(num_lanes // num_streams, 1))
+    table = ("global", "shared int32", "shared uint16")[r & 3]
+    return {"table": table, "table_smem": table != "global",
+            "hist_smem": bool(r & 4),
+            "lanes_per_cta": lib.dfa_chain_lanes_per_cta()}
 
 
 # --------------------------------------------------------------- plain versions

@@ -7,7 +7,8 @@ successors on the byte's class, and keeps the A smallest distinct ones,
 ascending, flagging overflow when an (A+1)-th exists. It is the loop of
 ``regex_fpga_tpu/ops/nfa_engine.py::nfa_scan_jax`` (``_nfa_step`` in a
 ``lax.scan``, vmapped over streams), bit for bit. The kernel is
-``csrc/nfa_active.cu``; it reads the per-class CSR of ``NfaCsr``.
+``csrc/nfa_active.cu``; it reads the per-class CSR of ``NfaCsr``, narrowed
+to 16 bits in shared memory when it fits there (``nfa_active_route``).
 
 Streams are slices of one flat uint8 tensor: stream n is
 ``data[starts[n] : starts[n] + lengths[n]]``, so ragged flows need no
@@ -26,7 +27,8 @@ import torch
 from .. import _build
 from .tables import NfaCsr
 
-__all__ = ["LAUNCHES", "nfa_active_scan", "nfa_active_scan_plain"]
+__all__ = ["LAUNCHES", "nfa_active_route", "nfa_active_scan",
+           "nfa_active_scan_plain"]
 
 #: Kernel launches since the last reset.
 LAUNCHES = {"nfa_active_scan": 0}
@@ -96,11 +98,26 @@ def nfa_active_scan(csr: NfaCsr, data, starts, lengths, active, counts):
         rc = _build.library().nfa_active_scan(
             data.data_ptr(), starts_d.data_ptr(), lengths_d.data_ptr(), n,
             class_of.data_ptr(), offsets.data_ptr(), targets.data_ptr(),
-            accept.data_ptr(), s, a, active.data_ptr(), counts.data_ptr(),
-            overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            accept.data_ptr(), csr.num_classes, s, targets.shape[0], a,
+            active.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "nfa_active_scan")
     return counts, active, overflow.bool()
+
+
+def nfa_active_route(csr: NfaCsr, num_streams: int, active_bound: int) -> dict:
+    """Where the kernel keeps its data for this NFA on the current card:
+    {"csr_smem": bool (narrowed to 16 bits), "counts_smem": bool,
+    "streams_per_cta": int}. Raises when one stream does not fit."""
+    r = _build.library().nfa_active_route(
+        csr.num_classes, csr.num_states, csr.targets.shape[0], active_bound,
+        num_streams)
+    if r < 0:
+        raise ValueError(f"{csr.num_states} states and a bound of "
+                         f"{active_bound} exceed the card's shared memory")
+    return {"csr_smem": bool(r & 1), "counts_smem": bool(r & 2),
+            "streams_per_cta": r >> 8}
 
 
 def nfa_active_scan_plain(csr: NfaCsr, data, starts, lengths, active, counts):

@@ -14,8 +14,8 @@ The counterpart of ``regex_fpga_tpu/ops/lazy_scan.py``:
 
 Every byte is counted exactly once; the result equals the golden NFA oracle
 and the JAX package bit for bit. The host walks run on the portable native
-build (``regex_fpga_tpu_torch.native``) when the LazyDfa comes from
-``native.lazy_dfa``. Raw bytes are uploaded and mapped to classes on the
+build (``regex_fpga_tpu_torch.native``), which the port's ``LazyDfa``
+always loads. Raw bytes are uploaded and mapped to classes on the
 device.
 """
 
@@ -28,7 +28,7 @@ import torch
 
 from ..models import LazyDfa
 from .dfa_take import dfa_scan_take, dfa_scan_take_counts
-from .tables import host_to_device
+from .tables import host_to_device, resolve_device
 
 __all__ = ["LazyScanState", "lazy_nfa_scan"]
 
@@ -97,11 +97,10 @@ def lazy_nfa_scan(
     device_chunk: int = 1 << 22,
     device=None,
 ) -> LazyScanState:
-    """Scan ``stream`` on ``device`` (default: the first CUDA card, else
-    the CPU), resuming from ``carry``. Returns the per-NFA-state counts, the
-    subset state after the stream and the offset."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    """Scan ``stream`` on ``device`` (default: the first CUDA card; raises
+    when there is none), resuming from ``carry``. Returns the per-NFA-state
+    counts, the subset state after the stream and the offset."""
+    device = resolve_device(device)
     stream = np.ascontiguousarray(stream, dtype=np.uint8)
     if carry is None:
         counts = np.zeros(ld.aut.num_states, dtype=np.int64)
@@ -109,7 +108,7 @@ def lazy_nfa_scan(
         base = 0
     else:
         counts, sid, base = np.array(carry.counts), carry.state_id, carry.offset
-    cache = _cache(ld, torch.device(device))
+    cache = _cache(ld, device)
 
     p = 0
     n = len(stream)

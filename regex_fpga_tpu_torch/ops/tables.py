@@ -34,9 +34,21 @@ __all__ = [
     "build_nfa_csr",
     "build_nfa_tables",
     "host_to_device",
+    "resolve_device",
     "stall_extend",
     "tables_from_numpy",
 ]
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the first CUDA card, and raises when no card is
+    visible: the CPU runs only when the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA card is visible; pass device='cpu' "
+                               "to run the plain PyTorch versions")
+        device = "cuda"
+    return torch.device(device)
 
 
 def host_to_device(arr, device, dtype=None) -> torch.Tensor:

@@ -49,7 +49,78 @@ SHAPES = [  # (C, S, B, NB, class dtype, block-major storage)
     (256, 1024, 64, 4096, torch.uint8, True),   # table above shared memory
     (37, 5, 33, 77, torch.int16, False),        # ragged edges everywhere
     (83, 2049, 256, 1024, torch.uint8, True),   # a lazy-DFA snapshot's shape
+    (83, 1025, 4096, 1024, torch.uint8, True),  # the Snort lazy snapshot: uint16
+    (83, 1400, 97, 257, torch.uint8, True),     # just past the uint16 limit
+    (2, 70_000, 40, 300, torch.int16, False),   # S above 65,535: never narrowed
 ]
+
+# the table route each shape must take on an H100 (227 KB of shared memory a
+# block), in finals mode with uint8 class ids
+ROUTES = {(10, 23): "shared int32", (36, 836): "shared int32",
+          (256, 1024): "global", (37, 5): "shared int32",
+          (83, 2049): "global", (83, 1025): "shared uint16",
+          (83, 1400): "global", (2, 70_000): "global"}
+
+
+@pytest.mark.parametrize("c,s", list(ROUTES))
+def test_dfa_chain_route(cuda, c, s):
+    route = hopper_dfa.dfa_chain_route("finals", c, s, 1024)
+    assert route["table"] == ROUTES[(c, s)]
+    assert route["table_smem"] == (ROUTES[(c, s)] != "global")
+    assert route["lanes_per_cta"] == 128
+
+
+@pytest.mark.parametrize("nb", [1, 31, 1024, 65536])
+@pytest.mark.parametrize("b", [1, 31, 33, 64, 95])
+@pytest.mark.parametrize("block_major", [True, False])
+def test_dfa_chain_lanes_steps_and_orders(cuda, nb, b, block_major):
+    """Lane counts from one to a full chunk's, steps that are not a
+    multiple of the 32-step window, rows that start at any byte, both input
+    orders, on the uint16 route (the Snort lazy snapshot's shape)."""
+    rng = np.random.default_rng(nb + b)
+    table, accept = random_table(rng, 83, 1025, cuda)
+    cls = class_columns(rng, 83, b, nb, torch.uint8, block_major, cuda)
+    ent = torch.as_tensor(rng.integers(0, 1025, size=nb).astype(np.int32),
+                          device=cuda)
+    for mode in hopper_dfa.MODES:
+        got = hopper_dfa.dfa_chain(table, accept, cls, ent, mode)
+        want = hopper_dfa.dfa_chain_plain(table, accept, cls, ent, mode)
+        for g, w in zip(got, want):
+            if g is not None:
+                assert torch.equal(g, w), mode
+    got = hopper_dfa.dfa_chain_counts(table, accept, cls, ent)
+    want = hopper_dfa.dfa_chain_counts_plain(table, accept, cls, ent)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("c,s", [(83, 1025), (12, 30)])
+def test_corrupt_table_on_each_shared_route(cuda, c, s):
+    """Entries that uint16 cannot hold (negative, 65,535 and above) and
+    entries past S step exactly as in the plain version on the narrowed
+    route (83, 1025) and the int32 route (12, 30); a strided view of the
+    class ids (neither stride 1) is read too."""
+    rng = np.random.default_rng(c)
+    table, accept = random_table(rng, c, s, cuda)
+    flat = table.view(-1)
+    hit = torch.as_tensor(rng.choice(flat.numel(), size=40, replace=False),
+                          device=cuda)
+    flat[hit] = torch.as_tensor(
+        rng.choice([-3, -70_000, 65_535, 65_536, 70_001, s, s + 7], size=40)
+        .astype(np.int32), device=cuda)
+    wide = class_columns(rng, c + 2, 70, 2 * 300, torch.uint8, False, cuda)
+    cls = wide[::2, ::2]  # (35, 300), strides (1200, 2)
+    ent = torch.as_tensor(rng.integers(-2, s + 2, size=300).astype(np.int32),
+                          device=cuda)
+    for mode in hopper_dfa.MODES:
+        for g, w in zip(hopper_dfa.dfa_chain(table, accept, cls, ent, mode),
+                        hopper_dfa.dfa_chain_plain(table, accept, cls, ent, mode)):
+            if g is not None:
+                assert torch.equal(g, w), mode
+    got = hopper_dfa.dfa_chain_counts(table, accept, cls, ent, 4)
+    want = hopper_dfa.dfa_chain_counts_plain(table, accept, cls, ent, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("c,s,b,nb,dtype,block_major", SHAPES)
@@ -181,9 +252,13 @@ def random_case(n_states, n_edges, n_bytes):
 NFAS = {  # name -> (automaton, bytes) from a seeded generator
     "random": random_case(60, 2000, 16),
     "two-byte alphabet": random_case(40, 240, 2),  # every list overflows
-    "40,000 states": random_case(40_000, 200_000, 4),
+    "3,000 states": random_case(3000, 20_000, 8),  # CSR shared, bitmap summary
+    "40,000 states": random_case(40_000, 200_000, 4),  # CSR in global memory
     "l7 corpus": l7_case,
 }
+# where K4 keeps the CSR of each (one stream per CTA at 8 streams)
+CSR_SMEM = {"random": True, "two-byte alphabet": True, "3,000 states": True,
+            "40,000 states": False, "l7 corpus": True}
 
 
 @pytest.mark.parametrize("name", list(NFAS))
@@ -202,6 +277,9 @@ def test_nfa_active_scan_matches_plain(cuda, name, bound):
     counts = torch.as_tensor(rng.integers(0, 1000, size=(len(lens), s + 1))
                              .astype(np.int32), device=cuda)
     dev_data = torch.as_tensor(np.array(data), device=cuda)
+    route = hopper_nfa.nfa_active_route(csr, len(lens), bound)
+    assert route["csr_smem"] == CSR_SMEM[name]
+    assert route["counts_smem"] and route["streams_per_cta"] == 1
     before = hopper_nfa.LAUNCHES["nfa_active_scan"]
     got = hopper_nfa.nfa_active_scan(csr, dev_data, starts, lens, active, counts)
     assert hopper_nfa.LAUNCHES["nfa_active_scan"] == before + 1
@@ -214,3 +292,28 @@ def test_nfa_active_scan_matches_plain(cuda, name, bound):
         assert bool(want[2].any())  # the overflow path ran
     if name == "l7 corpus" and bound == 128:
         assert not bool(want[2].any())
+
+
+@pytest.mark.parametrize("name", ["l7 corpus", "3,000 states"])
+def test_nfa_active_scan_many_streams_per_cta(cuda, name):
+    """397 streams: several share a CTA (and its CSR), and the last CTA is
+    only partly filled; zero-length and overflowing streams among them."""
+    rng = np.random.default_rng(397)
+    aut, data = NFAS[name](rng)
+    s = aut.num_states
+    csr = build_nfa_csr(aut, device=cuda)
+    n = 397
+    route = hopper_nfa.nfa_active_route(csr, n, 8)
+    assert route["streams_per_cta"] > 1 and n % route["streams_per_cta"]
+    lens = rng.integers(0, 300, size=n)
+    lens[::50] = 0
+    starts = rng.integers(0, len(data) - 300, size=n)
+    active = initial_active(s, 8, n, cuda)
+    counts = torch.zeros((n, s + 1), dtype=torch.int32, device=cuda)
+    dev_data = torch.as_tensor(np.array(data), device=cuda)
+    got = hopper_nfa.nfa_active_scan(csr, dev_data, starts, lens, active, counts)
+    want = hopper_nfa.nfa_active_scan_plain(csr, dev_data, starts, lens,
+                                            active, counts)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -11,7 +11,7 @@ import torch
 from regex_fpga_tpu.models import nfa_scan as oracle
 from regex_fpga_tpu.models.lazy_dfa import LazyDfa
 from regex_fpga_tpu.ops.lazy_scan import lazy_nfa_scan as jax_lazy_nfa_scan
-from regex_fpga_tpu_torch import native
+from regex_fpga_tpu_torch import models as tmodels
 from regex_fpga_tpu_torch.models import gen_l7_traffic, l7_corpus_nfa
 from regex_fpga_tpu_torch.ops import lazy_scan
 
@@ -29,7 +29,7 @@ def l7_stream(n):
 
 
 def both(aut, stream, **kw):
-    got = lazy_scan.lazy_nfa_scan(native.lazy_dfa(aut), stream, device="cpu", **kw)
+    got = lazy_scan.lazy_nfa_scan(tmodels.LazyDfa(aut), stream, device="cpu", **kw)
     want = jax_lazy_nfa_scan(LazyDfa(aut), stream, **kw)
     return got, want
 
@@ -59,7 +59,7 @@ def test_l7_matches_jax_and_oracle(kw):
 def test_resume_matches_jax_and_one_shot():
     aut = l7_corpus_nfa()
     stream = l7_stream(14_000)
-    ld = native.lazy_dfa(aut)
+    ld = tmodels.LazyDfa(aut)
     s1 = lazy_scan.lazy_nfa_scan(ld, stream[:5_000], device="cpu", **SMALL)
     s2 = lazy_scan.lazy_nfa_scan(ld, stream[5_000:], carry=s1, device="cpu",
                                  **SMALL)
@@ -76,7 +76,7 @@ def test_resume_matches_jax_and_one_shot():
 def test_table_uploads_only_when_the_automaton_changes():
     aut = l7_corpus_nfa()
     stream = l7_stream(8_000)
-    ld = native.lazy_dfa(aut)
+    ld = tmodels.LazyDfa(aut)
     lazy_scan.lazy_nfa_scan(ld, stream, device="cpu", **SMALL)
     cache = ld._torch_device_caches[torch.device("cpu")]
     cache.ensure(ld)
