@@ -12,11 +12,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    regex_fpga_tpu_torch/csrc with nvcc and the native host walker from
    native/golden_scan.cpp with g++, and prints the build times;
 2. kernels: K1 (dfa_chain, all three modes), K2 (dfa_chain_counts, single
-   and per-stream) and K3 (kgram_chain) against their plain PyTorch
-   versions on the card at the main path's shapes, bit for bit, with the
-   time, the bound and the route (table placement and narrowing, lanes per
-   CTA) of each; then K1/K2 on a lazy-DFA snapshot of the Snort-corpus NFA
-   (the narrowed shared table) and K4 (nfa_active_scan) on both of its
+   and per-stream, on random class ids and on real text) and K3
+   (kgram_chain over class ids and kgram_chain_bytes over raw text) against
+   their plain PyTorch versions on the card at the main path's shapes, bit
+   for bit, with the time, the bound, the chain floor (steps x the measured
+   latency of a dependent shared-memory load) and the route (table
+   placement and narrowing, histogram, lanes per CTA) of each; then K1/K2
+   on a lazy-DFA snapshot of the Snort-corpus NFA (the narrowed shared
+   table; and padded to 2,049 columns, the global-memory table that the
+   warmed main path launches) and K4 (nfa_active_scan) on both of its
    routes: the l7-corpus NFA (CSR in shared memory, a forced overflow
    included) and a Snort-corpus prefix (CSR in global memory); then K4
    alone on the main path's 64 flows of 1 MiB;
@@ -75,6 +79,8 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                          "regex_fpga_tpu/ops/pallas_dfa.py:196"),
     "kgram_chain": ("cuda", "regex_fpga_tpu_torch/csrc/kgram_chain.cu",
                     "regex_fpga_tpu/ops/pallas_kgram.py:65"),
+    "kgram_chain_bytes": ("cuda", "regex_fpga_tpu_torch/csrc/kgram_chain.cu",
+                          "regex_fpga_tpu/ops/pallas_kgram.py:65"),
     "nfa_active_scan": ("cuda", "regex_fpga_tpu_torch/csrc/nfa_active.cu",
                         "regex_fpga_tpu/ops/nfa_engine.py:43"),
 }
@@ -82,7 +88,7 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
 # there is no library call to time beside the kernels
 LIBRARY_MS = None
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
-DFA_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain")
+DFA_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain", "kgram_chain_bytes")
 NFA_PATH = ("dfa_chain", "dfa_chain_counts", "nfa_active_scan")
 
 
@@ -139,6 +145,24 @@ def bound_ms(inputs, outputs) -> float:
     dependent table lookup per byte and no arithmetic worth a peak rate, so
     the bytes bound it."""
     return (nbytes(*inputs) + nbytes(*outputs)) / HBM_BYTES_PER_S * 1e3
+
+
+def chase_ns(entry_bytes: int, spread: bool = True) -> float:
+    """The measured latency of a dependent shared-memory load, nanoseconds:
+    one warp follows a cycle of table entries (csrc/smem_chase.cu), its 32
+    lanes in 32 banks (``spread``) or all in one bank; the difference of two
+    step counts, so that launch and fill cancel."""
+    from regex_fpga_tpu_torch import _build
+
+    lib = _build.library()
+    out = torch.empty(32, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(steps):
+        return lambda: _build.check(
+            lib.smem_chase(entry_bytes, steps, int(spread), out.data_ptr(), stream),
+            "smem_chase")
+    return (event_ms(run(8192), 20) - event_ms(run(4096), 20)) / 4096 * 1e6
 
 
 def launch_counters() -> dict:
@@ -207,12 +231,13 @@ def phase_device(out_dir):
 # ---------------------------------------------------------------- phase 2
 
 
-def phase_kernels(dev, tok_tables, ac_tables):
+def phase_kernels(dev, tok_tables, tok_start, ac_tables):
     """Each kernel against its plain version on the card. Returns per-kernel
     {"max_abs_err", "ms", "plain_ms"} at the main path's shapes."""
     from regex_fpga_tpu_torch.ops import hopper_dfa as hd
     from regex_fpga_tpu_torch.ops import hopper_kgram as hk
-    from regex_fpga_tpu_torch.ops.kgram import build_kgram, pack_ta
+    from regex_fpga_tpu_torch.ops.kgram import (build_kgram, kgram_maps,
+                                                map_kgram_classes, pack_ta)
     from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
 
     rng = np.random.default_rng(SEED)
@@ -229,6 +254,7 @@ def phase_kernels(dev, tok_tables, ac_tables):
         ("random-global", big, 256, torch.uint8, True),
     ]
     errs = {name: 0 for name in DFA_PATH}
+    routes = {}
     for name, t, b, dtype, block_major in cases:
         c, s = t.table.shape
         shape = (nb, b) if block_major else (b, nb)
@@ -237,7 +263,7 @@ def phase_kernels(dev, tok_tables, ac_tables):
         cls_seq = cls.T if block_major else cls
         ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32),
                               device=dev)
-        route = hd.dfa_chain_route("counts", c, s, nb, 64, dtype)
+        route = routes[name] = hd.dfa_chain_route("counts", c, s, nb, 64, dtype)
         for mode in hd.MODES:
             e = max_abs_err(hd.dfa_chain(t.table, t.accept, cls_seq, ent, mode),
                             hd.dfa_chain_plain(t.table, t.accept, cls_seq, ent, mode))
@@ -250,14 +276,16 @@ def phase_kernels(dev, tok_tables, ac_tables):
         torch.cuda.synchronize()
         print(f"kernels: {name} S={s} C={c} {nb}x{b} {str(dtype)[6:]} "
               f"{'block' if block_major else 'time'}-major, table "
-              f"{route['table']}, histogram "
-              f"{'shared' if route['hist_smem'] else 'global'}, "
-              f"{route['lanes_per_cta']} lanes per CTA: K1 x3 modes, K2 single "
+              f"{route['table']}, accept bit "
+              f"{'in the entry' if route['accept_folded'] else 'loaded'}, "
+              f"histogram {route['hist']}, staging ring of {route['ring']} "
+              f"windows, {route['lanes_per_cta']} lanes per CTA: K1 x3 modes, K2 single "
               f"and 64 streams bit-exact against plain (tolerance 0)", flush=True)
 
     # K3 at the tokenizer's level-2 k-gram shape: 64 MiB of text = 2^24 steps
     kg = build_kgram(tok_tables, levels=2)
     kg_ta = pack_ta(torch.as_tensor(kg.table), torch.as_tensor(kg.acc_table)).to(dev)
+    kg_maps = kgram_maps(kg).to(dev)
     ck = torch.as_tensor(rng.integers(0, kg.table.shape[0], size=(nb, 256))
                          .astype(np.int32), device=dev)
     ent = torch.as_tensor(rng.integers(0, kg.num_states, size=nb)
@@ -267,18 +295,56 @@ def phase_kernels(dev, tok_tables, ac_tables):
     ac_c, ac_s = ac_tables.table.shape
     big_cls = torch.as_tensor(rng.integers(0, ac_c, size=(4096, 256))
                               .astype(np.int16), device=dev)
-    big_acc = torch.as_tensor(rng.integers(0, 5, size=(ac_c, ac_s))
-                              .astype(np.int32), device=dev)
-    big_ta = pack_ta(ac_tables.table, big_acc)
     ent_ac = torch.zeros(4096, dtype=torch.int32, device=dev)
-    errs["kgram_chain"] = max(errs["kgram_chain"], max_abs_err(
-        hk.kgram_chain(big_ta, big_cls.T, ent_ac),
-        hk.kgram_chain_plain(big_ta, big_cls.T, ent_ac)))
+    k3_routes = [hk.kgram_chain_route(kg_ta, num_lanes=nb)["table"]]
+    # an Aho-Corasick-sized table with counts up to 4 (the uint16 form) and
+    # up to 300 (no narrow form: the wide table in global memory)
+    for top in (4, 300):
+        big_acc = torch.as_tensor(rng.integers(0, top + 1, size=(ac_c, ac_s))
+                                  .astype(np.int32), device=dev)
+        big_ta = pack_ta(ac_tables.table, big_acc)
+        k3_routes.append(hk.kgram_chain_route(big_ta, class_dtype=torch.int16)
+                         ["table"])
+        errs["kgram_chain"] = max(errs["kgram_chain"], max_abs_err(
+            hk.kgram_chain(big_ta, big_cls.T, ent_ac),
+            hk.kgram_chain_plain(big_ta, big_cls.T, ent_ac)))
+    check(k3_routes == ["shared uint16", "shared uint16", "global"],
+          f"K3 routes {k3_routes}")
+    # raw text in: the real text, block-major as DfaMatcher.count cuts it
+    text = torch.as_tensor(np.resize(np.frombuffer(FRAG, np.uint8), nb * 1024),
+                           device=dev)
+    text3 = text.reshape(nb, 256, 4).transpose(0, 1)
+    check(hk.kgram_chain_route(kg_ta, kg_maps)["table"] == "shared uint16",
+          "kgram_chain_bytes keeps table and maps in shared memory")
+    got_b = hk.kgram_chain_bytes(kg_ta, kg_maps, text3, ent)
+    errs["kgram_chain_bytes"] = max(
+        max_abs_err(got_b, hk.kgram_chain_bytes_plain(kg_ta, kg_maps, text3, ent)),
+        max_abs_err(got_b, hk.kgram_chain(
+            kg_ta, map_kgram_classes(kg, text).reshape(nb, 256).T, ent)))
     torch.cuda.synchronize()
     print(f"kernels: K3 tokenizer k=4 C_k={kg.table.shape[0]} S={kg.num_states} "
-          f"{nb}x256 int32 and AC-sized S={ac_s} (table in "
-          f"{'shared' if hk.kgram_chain_route(ac_c, ac_s)['table_smem'] else 'global'}"
-          f" memory) int16 bit-exact against plain (tolerance 0)", flush=True)
+          f"{nb}x256: class ids int32 (table {k3_routes[0]}, staging ring of "
+          f"{hk.kgram_chain_route(kg_ta, num_lanes=nb)['ring']} windows) and raw text "
+          f"{nb}x256x4 uint8 (table and {kg_maps.size} map entries in shared "
+          f"memory); AC-sized S={ac_s} int16 ids, counts to 4 (table "
+          f"{k3_routes[1]}) and to 300 (table {k3_routes[2]}): bit-exact "
+          f"against plain (tolerance 0)", flush=True)
+    # K2 on real text, every lane from the tokenizer's start state: a
+    # quarter of the steps count, on 11 of 23 states
+    text_cls = torch.index_select(tok_tables.class_of, 0, text.int()) \
+        .to(torch.uint8).reshape(nb, 1024).T
+    ent0 = torch.full((nb,), tok_start, dtype=torch.int32, device=dev)
+    for streams in (None, 64):
+        want = hd.dfa_chain_counts_plain(tok_tables.table, tok_tables.accept,
+                                         text_cls, ent0, streams)
+        errs["dfa_chain_counts"] = max(errs["dfa_chain_counts"], max_abs_err(
+            hd.dfa_chain_counts(tok_tables.table, tok_tables.accept, text_cls,
+                                ent0, streams), want))
+    hit_share = float(want[1].sum()) / text.numel()
+    check(hit_share > 0.1, f"real text counts on {hit_share:.1%} of its steps")
+    print(f"kernels: K2 tokenizer on real text {nb}x1024, single and 64 "
+          f"streams, {hit_share:.1%} of the steps count: bit-exact against "
+          f"plain (tolerance 0)", flush=True)
     for name, e in errs.items():
         check(e == 0, f"{name} differs from its plain version by {e}")
 
@@ -292,11 +358,15 @@ def phase_kernels(dev, tok_tables, ac_tables):
         "dfa_chain": lambda: hd.dfa_chain(tt, ta, cls, ent, "finals"),
         "dfa_chain_counts": lambda: hd.dfa_chain_counts(tt, ta, cls, ent),
         "kgram_chain": lambda: hk.kgram_chain(kg_ta, ck.T, ent),
+        "kgram_chain_bytes":
+            lambda: hk.kgram_chain_bytes(kg_ta, kg_maps, text3, ent),
     }
     plain = {
         "dfa_chain": lambda: hd.dfa_chain_plain(tt, ta, cls, ent, "finals"),
         "dfa_chain_counts": lambda: hd.dfa_chain_counts_plain(tt, ta, cls, ent),
         "kgram_chain": lambda: hk.kgram_chain_plain(kg_ta, ck.T, ent),
+        "kgram_chain_bytes":
+            lambda: hk.kgram_chain_bytes_plain(kg_ta, kg_maps, text3, ent),
     }
     # the same chunk through the other modes, and the other tables: the
     # Aho-Corasick DFA (shared memory above 48 KB) and the random table
@@ -312,6 +382,13 @@ def phase_kernels(dev, tok_tables, ac_tables):
         "dfa_chain[mask]": lambda: hd.dfa_chain(tt, ta, cls, ent, "mask"),
         "dfa_chain_counts[64 streams]":
             lambda: hd.dfa_chain_counts(tt, ta, cls, ent, 64),
+        "dfa_chain_counts[real text]":
+            lambda: hd.dfa_chain_counts(tt, ta, text_cls, ent0),
+        "dfa_chain_counts[real text, 64 streams]":
+            lambda: hd.dfa_chain_counts(tt, ta, text_cls, ent0, 64),
+        "kgram_chain[raw text through map_kgram_classes]":
+            lambda: hk.kgram_chain(
+                kg_ta, map_kgram_classes(kg, text).reshape(nb, 256).T, ent),
         "dfa_chain[aho-corasick S=836]":
             lambda: hd.dfa_chain(at, aa, ac_cls, ent, "finals"),
         "dfa_chain_counts[aho-corasick S=836]":
@@ -326,21 +403,35 @@ def phase_kernels(dev, tok_tables, ac_tables):
         "dfa_chain": bound_ms((cls, tt, ta, ent), (fin,)),
         "dfa_chain_counts": bound_ms((cls, tt, ta, ent), (fin, torch.empty(
             tt.shape[1], dtype=torch.int32, device=dev))),
-        "kgram_chain": bound_ms((ck, kg_ta, ent), (fin, fin)),
+        "kgram_chain": bound_ms((ck, kg_ta.narrow, ent), (fin, fin)),
+        "kgram_chain_bytes": bound_ms((text, kg_ta.narrow, kg_maps.packed, ent),
+                                      (fin, fin)),
     }
-    results = {}
+    # the floor under a chain: steps x the latency of one dependent load
+    # from shared memory, at the entry width of the route taken
+    latency = {2: chase_ns(2), 4: chase_ns(4)}
+    print(f"time: dependent shared-memory load {latency[2]:.2f} ns (uint16 "
+          f"entries), {latency[4]:.2f} ns (uint32); with the warp's 32 lanes "
+          f"in one bank {chase_ns(2, False):.2f} and {chase_ns(4, False):.2f} ns",
+          flush=True)
+    floors = {"dfa_chain": 1024 * latency[4], "dfa_chain_counts": 1024 * latency[4],
+              "kgram_chain": 256 * latency[2], "kgram_chain_bytes": 256 * latency[2]}
+    results = {"latency_ns": latency}
     for name in DFA_PATH:
         ms = event_ms(timing[name], 20)
         plain_ms = event_ms(plain[name], 2)
+        k3 = name.startswith("kgram")
         results[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bounds[name], "bound_by": "bytes",
                          "library_ms": LIBRARY_MS,
+                         "chain_floor_ms": floors[name] / 1e6,
                          "shape": "tokenizer (S=23), 65,536 lanes x "
-                                  + ("256 k-gram steps" if name == "kgram_chain"
-                                     else "1,024 steps")}
+                                  + ("256 k-gram steps" if k3 else "1,024 steps")
+                                  + (" of 4 raw bytes" if name.endswith("bytes")
+                                     else "")}
         print(f"time: {name} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-              f"{bounds[name]:.4f} ms ({64 * MIB / ms / 1e6:.1f} GB/s of text)",
-              flush=True)
+              f"{bounds[name]:.4f} ms, chain floor {floors[name] / 1e6:.4f} ms "
+              f"({64 * MIB / ms / 1e6:.1f} GB/s of text)", flush=True)
     for name, fn in extra.items():
         ms = event_ms(fn, 20)
         print(f"time: {name} {ms:.4f} ms ({64 * MIB / ms / 1e6:.1f} GB/s of text)",
@@ -408,20 +499,43 @@ def phase_nfa_kernels(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     }
     print(f"kernels: lazy-DFA snapshot of the Snort-corpus NFA, table "
           f"({c}, {m1}) int32 stored {route['table']} (counts: "
-          f"{croute['table']}, histogram "
-          f"{'shared' if croute['hist_smem'] else 'global'}), "
+          f"{croute['table']}, accept bit "
+          f"{'in the entry' if croute['accept_folded'] else 'loaded'}, "
+          f"histogram {croute['hist']}, staging ring of {croute['ring']} "
+          f"windows; finals: ring of {route['ring']}), "
           f"{route['lanes_per_cta']} lanes per CTA, {nb}x{b} uint8 "
           f"block-major: K1 x3 modes and K2 bit-exact against plain "
           f"(tolerance 0)", flush=True)
     for name, (fn, plain, bound) in lazy_times.items():
         ms = event_ms(fn, 20)
         _, plain_ms = one_run_ms(plain)
+        floor = b * results["latency_ns"][2] / 1e6  # uint16 entries
         results[name]["lazy"] = {"shape": f"lazy table ({c}, {m1}), {nb} lanes "
                                           f"x {b} steps",
-                                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+                                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                 "chain_floor_ms": floor}
         print(f"time: {name}[lazy table ({c}, {m1}), {nb}x{b}] {ms:.4f} ms, "
-              f"plain {plain_ms:.2f} ms, bound {bound:.5f} ms "
-              f"({nb * b / ms / 1e6:.2f} GB/s of text)", flush=True)
+              f"plain {plain_ms:.2f} ms, bound {bound:.5f} ms, chain floor "
+              f"{floor:.4f} ms ({nb * b / ms / 1e6:.2f} GB/s of text)", flush=True)
+    # once the lazy DFA outgrows 1,024 states its snapshot is padded to
+    # 2,049 columns, which no shared-memory form holds: the warmed main path
+    # launches K1 and K2 on that table, from global memory
+    wide_t = torch.nn.functional.pad(table, (0, 1024)).contiguous()
+    wide_a = torch.nn.functional.pad(accept, (0, 1024)).contiguous()
+    check(not hd.dfa_chain_route("counts", c, 2049, nb)["table_smem"],
+          "the padded snapshot takes the global-memory route")
+    err = max(max_abs_err(hd.dfa_chain(wide_t, wide_a, cls, ent),
+                          hd.dfa_chain_plain(wide_t, wide_a, cls, ent)),
+              max_abs_err(hd.dfa_chain_counts(wide_t, wide_a, cls, ent),
+                          hd.dfa_chain_counts_plain(wide_t, wide_a, cls, ent)))
+    check(err == 0, f"K1/K2 on the padded lazy table differ from plain by {err}")
+    for name, fn in (("dfa_chain", hd.dfa_chain), ("dfa_chain_counts", hd.dfa_chain_counts)):
+        ms = event_ms(lambda: fn(wide_t, wide_a, cls, ent), 20)
+        results[name]["lazy_global"] = {
+            "shape": f"lazy table padded to ({c}, 2049), global memory, {nb} lanes x {b} steps",
+            "ms": ms}
+        print(f"time: {name}[lazy table padded to ({c}, 2049), global memory, {nb}x{b}] "
+              f"{ms:.4f} ms, bit-exact against plain", flush=True)
     # the fixed cost of a launch (table fill, first window): one window
     short = cls[:32]
     ms = event_ms(lambda: hd.dfa_chain(table, accept, short, ent), 20)
@@ -505,6 +619,7 @@ def phase_main_path(dev):
     the calls, as (label, zero-argument function, bytes) for the profile."""
     from regex_fpga_tpu_torch import api
     from regex_fpga_tpu_torch.models import CompiledDfa, build_aho_corasick
+    from regex_fpga_tpu_torch.ops.kgram import dfa_scan_kgram, map_kgram_classes
 
     rng = np.random.default_rng(SEED + 1)
     cfg = api.EngineConfig(scan_backend="device")  # chunk 64 MiB, 65536 lanes
@@ -533,7 +648,10 @@ def phase_main_path(dev):
     t16 = text[:16 * MIB]
     calls = [  # label, matcher, method, args, bytes
         ("tokenizer scan counts 64 MiB", "tok", "scan", (text,), text.size),
-        ("tokenizer count (k-gram) 64 MiB", "tok", "count", (text,), text.size),
+        ("tokenizer count (k-gram, raw text in) 64 MiB", "tok", "count", (text,),
+         text.size),
+        ("tokenizer dfa_scan_kgram over class ids 64 MiB", "tok", "kgram_ids",
+         (text,), text.size),
         ("tokenizer scan positions 16 MiB", "tok", "scan_positions", (t16,),
          t16.size),
         ("tokenizer presplit 16 MiB", "tok", "presplit", (t16,), t16.size),
@@ -547,6 +665,14 @@ def phase_main_path(dev):
     def run(m, method, args):
         if method == "scan_positions":
             return m.scan(*args, collect_positions=True)
+        if method == "kgram_ids":
+            # the class-id entry point of the k-gram engine: the text is
+            # mapped to k-gram classes by tensor passes, then scanned
+            kg, ta, _ = m._kgram()
+            ids = map_kgram_classes(kg, m._upload(args[0]))
+            res = dfa_scan_kgram(ta, ids, num_blocks=cfg.num_blocks, start=m.start,
+                                 max_iters=cfg.max_iters)
+            return [int(res.total), int(res.final_state), int(res.converged)]
         return getattr(m, method)(*args)
 
     reset_launches()
@@ -563,6 +689,10 @@ def phase_main_path(dev):
         print(f"main: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
               f"{REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max {max(ms):.2f})"
               f"{note}", flush=True)
+    ids_total, ids_final, ids_converged = got[calls[2][0]]
+    check(ids_converged and got[calls[1][0]] == ids_total
+          + int(card["tok"]._accept_eof[ids_final]),
+          "count from raw text equals the scan over class ids")
     launches = launch_counters()
     print(f"main: launches {json.dumps(launches)}", flush=True)
     for name in DFA_PATH:
@@ -786,7 +916,7 @@ def main(argv=None) -> int:
     tok_tables = build_dfa_tables(tok.table, tok.accept, device=dev)
     ac = build_aho_corasick(WORDS[:300]).dfa
     ac_tables = build_dfa_tables(ac.table, ac.accept, device=dev)
-    kernel_times = phase_kernels(dev, tok_tables, ac_tables)
+    kernel_times = phase_kernels(dev, tok_tables, int(tok.start), ac_tables)
 
     t0 = time.perf_counter()
     snort_aut, l7_aut = snort_corpus_nfa(), l7_corpus_nfa()

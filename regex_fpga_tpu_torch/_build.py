@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--threads", "0",  # one compilation per source file, side by side
 )
 
 
@@ -88,14 +89,17 @@ def library() -> ctypes.CDLL:
     lib.dfa_chain_counts.argtypes = [p, i, ll, ll, p, p, i, i, p, i, i, p, p, i, p]
     lib.dfa_chain_route.argtypes = [i, i, i, i, i, i]
     lib.dfa_chain_lanes_per_cta.argtypes = []
-    lib.kgram_chain.argtypes = [p, i, ll, ll, p, i, i, p, i, i, p, p, p]
-    lib.kgram_chain_route.argtypes = [i, i]
+    lib.kgram_chain.argtypes = [
+        p, i, ll, ll, i, p, i, i, p, i, i, p, i, i, i, i, p, i, i, p, p, p,
+    ]
+    lib.kgram_chain_route.argtypes = [i, i, i, i, i, i]
+    lib.smem_chase.argtypes = [i, i, i, p, p]
     lib.nfa_active_scan.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
     lib.nfa_active_route.argtypes = [i, i, i, i, i]
     for fn in (lib.dfa_chain, lib.dfa_chain_counts, lib.dfa_chain_route,
                lib.dfa_chain_lanes_per_cta, lib.kgram_chain,
                lib.kgram_chain_route, lib.nfa_active_scan,
-               lib.nfa_active_route):
+               lib.nfa_active_route, lib.smem_chase):
         fn.restype = i
     return lib
 

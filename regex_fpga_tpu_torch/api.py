@@ -54,7 +54,7 @@ from .ops.kgram import (
     KGRAM_MAX_STATES,
     build_kgram,
     dfa_scan_kgram,
-    map_kgram_classes,
+    kgram_maps,
     pack_ta,
 )
 from .ops.lazy_scan import lazy_nfa_scan
@@ -257,9 +257,10 @@ class DfaMatcher:
         )
 
     def _kgram(self):
-        """Cached (k-gram tables, their packed T_k and A_k on the device),
-        or None when the k=1 counts engine is the choice (more than
-        ``KGRAM_MAX_STATES`` states, or a composed-class blowup)."""
+        """Cached (k-gram tables, their packed T_k and A_k, their packed
+        byte and pair maps), the last two on the device, or None when the
+        k=1 counts engine is the choice (more than ``KGRAM_MAX_STATES``
+        states, or a composed-class blowup)."""
         if not hasattr(self, "_kgram_cache"):
             kg = None
             if self.tables.num_states <= KGRAM_MAX_STATES:
@@ -268,6 +269,7 @@ class DfaMatcher:
                 kg,
                 pack_ta(torch.as_tensor(kg.table), torch.as_tensor(kg.acc_table))
                 .to(self.device),
+                kgram_maps(kg).to(self.device),
             )
         return self._kgram_cache
 
@@ -287,7 +289,7 @@ class DfaMatcher:
             if kgc is None:
                 total += int(self.scan([stream]).counts.sum())
                 continue
-            kg, ta = kgc
+            kg, ta, maps = kgc
             cb = self.config.chunk_bytes
             cur = self.start
             stream_total = 0
@@ -298,10 +300,11 @@ class DfaMatcher:
                 nb = self._pick_blocks(max(steps, 1))
                 main_len = (steps // nb) * nb * kg.k
                 if main_len:
-                    ck = map_kgram_classes(kg, self._upload(chunk[:main_len]))
+                    # the raw text goes to the k-gram kernel, which maps
+                    # it to classes itself
                     res = dfa_scan_kgram(
-                        ta, ck, num_blocks=nb, start=cur,
-                        max_iters=self.config.max_iters,
+                        ta, self._upload(chunk[:main_len]), num_blocks=nb,
+                        start=cur, max_iters=self.config.max_iters, maps=maps,
                     )
                     if not res.converged:
                         diverged = True

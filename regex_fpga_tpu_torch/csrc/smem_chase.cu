@@ -1,0 +1,49 @@
+// A measuring kernel, not a port of anything: the latency of a dependent
+// shared-memory load on this card, which is the floor under every chain
+// pass (dfa_chain.cu, kgram_chain.cu): a lane's steps cannot go faster than
+// steps x this latency, however few bytes it moves.
+//
+// One CTA of one warp; every lane follows a cycle of uint16 or uint32
+// entries through shared memory, each load's address taken from the load
+// before it: idx <- table[idx]. With `spread` the 32 lanes walk neighbouring
+// entries and never share a bank (the latency of the load alone); without
+// it they stay 64 entries apart, all in one bank, which is the worst a warp
+// of chain lanes can do (32 passes through the bank for one load). Time two step counts with CUDA events and
+// divide the difference by the difference in steps; the launch and the
+// fill then cancel.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int ENTRIES = 8192;
+
+template <typename ET>
+__global__ void __launch_bounds__(32) smem_chase_kernel(int steps, int spread, int* out) {
+  __shared__ ET table[ENTRIES];
+  // a single cycle through all entries: idx -> idx + 4097 (odd, so coprime
+  // with 8192), stored as a byte offset like the chain kernels' entries
+  for (int k = threadIdx.x; k < ENTRIES; k += 32)
+    table[k] = (ET)(((k + 4097) & (ENTRIES - 1)) * sizeof(ET));
+  __syncwarp();
+  unsigned off = threadIdx.x * (spread ? 1 : 64) * sizeof(ET);
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(table);
+#pragma unroll 32
+  for (int t = 0; t < steps; ++t) off = *reinterpret_cast<const ET*>(base + off);
+  out[threadIdx.x] = (int)off;
+}
+
+}  // namespace
+
+// entry_bytes: 2 or 4. out: 32 int32 (the lanes' last offsets, so that the
+// loads cannot be dropped).
+extern "C" int smem_chase(int entry_bytes, int steps, int spread, int* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (entry_bytes == 2)
+    smem_chase_kernel<uint16_t><<<1, 32, 0, st>>>(steps, spread, out);
+  else if (entry_bytes == 4)
+    smem_chase_kernel<uint32_t><<<1, 32, 0, st>>>(steps, spread, out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

@@ -156,16 +156,21 @@ def dfa_chain_route(mode: str, num_classes: int, num_states: int,
                     num_lanes: int = 1, num_streams: int = 1,
                     class_dtype: torch.dtype = torch.uint8) -> dict:
     """Where the kernel keeps its data for these shapes on the current card:
-    {"table": "shared int32" | "shared uint16" | "global", "table_smem":
-    bool, "hist_smem": bool, "lanes_per_cta": int}."""
+    {"table": "shared uint16" | "shared uint32" | "global", "table_smem":
+    bool, "accept_folded": bool (the accept bit rides in the table entry: one
+    load per step), "hist": "lane rows" | "stream rows" | "global" (counts
+    mode), "hist_smem": bool, "ring": windows in the staging ring,
+    "lanes_per_cta": int}."""
     code = {"finals": 0, "full": 1, "mask": 2, "counts": 3}[mode]
     lib = _build.library()
     r = lib.dfa_chain_route(code, _CLASS_DTYPES[class_dtype], num_classes,
                             num_states, num_lanes,
                             max(num_lanes // num_streams, 1))
-    table = ("global", "shared int32", "shared uint16")[r & 3]
+    table = ("global", "shared uint32", "shared uint16")[r & 3]
+    hist = ("global", "stream rows", "lane rows")[(r >> 2) & 3]
     return {"table": table, "table_smem": table != "global",
-            "hist_smem": bool(r & 4),
+            "accept_folded": table != "global" and mode != "finals",
+            "hist": hist, "hist_smem": hist != "global", "ring": r >> 4,
             "lanes_per_cta": lib.dfa_chain_lanes_per_cta()}
 
 

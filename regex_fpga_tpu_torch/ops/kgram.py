@@ -10,9 +10,10 @@ granularity, so an accept-count table rides alongside:
     A_2k[(c1,c2), s] = A_k[c1, s] + A_k[c2, T_k[c1, s]]
 
 giving exact total match counts. The table construction is the JAX package's
-numpy code; the chain pass runs on the K3 Hopper kernel (``hopper_kgram``),
-which reads T_k and A_k interleaved: the scans take that packed (C_k, S, 2)
-table (``pack_ta``), built once per automaton.
+numpy code; the chain pass runs on the K3 Hopper kernel (``hopper_kgram``):
+the scans take the tables packed once per automaton (``pack_ta``) and, with
+the packed byte and pair maps (``kgram_maps``), the raw text itself: the
+kernel then derives each step's class, and no class-id tensor is built.
 """
 
 from __future__ import annotations
@@ -23,8 +24,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .dfa_fast import _overlap_seq
-from .hopper_kgram import kgram_chain, pack_ta
+from .hopper_kgram import (
+    KgramMaps,
+    PackedTa,
+    kgram_bytes_supported,
+    kgram_chain,
+    kgram_chain_bytes,
+    map_classes,
+    map_levels,
+    pack_maps,
+    pack_ta,
+)
 from .tables import DfaTables
 
 __all__ = [
@@ -33,6 +43,7 @@ __all__ = [
     "KgramTables",
     "build_kgram",
     "dfa_scan_kgram",
+    "kgram_maps",
     "kgram_pass_full",
     "map_kgram_classes",
     "pack_ta",
@@ -127,14 +138,19 @@ def map_kgram_classes(kg: KgramTables, data) -> torch.Tensor:
         data = torch.tensor(np.asarray(data, dtype=np.uint8))
     if data.shape[0] % kg.k:
         raise ValueError(f"length {data.shape[0]} is not a multiple of k={kg.k}")
-    dev = data.device
-    lut = torch.as_tensor(kg.class_of, dtype=torch.int32, device=dev)
-    cls = torch.index_select(lut, 0, data.int())
-    for lvl, remap in enumerate(kg.pair_maps):
-        c = kg.level_classes[lvl]
-        remap_t = torch.as_tensor(remap, dtype=torch.int32, device=dev)
-        cls = torch.index_select(remap_t, 0, cls[0::2] * c + cls[1::2])
-    return cls
+    def lut(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=data.device)
+
+    return map_levels(lut(kg.class_of), [lut(m) for m in kg.pair_maps],
+                      kg.level_classes, data)
+
+
+def kgram_maps(kg: KgramTables) -> KgramMaps | None:
+    """``class_of`` and the pair maps of ``kg`` packed for the raw-text
+    passes, or None when k is not 2, 4 or 8 (the class-id passes remain)."""
+    if not 1 <= len(kg.pair_maps) <= 3:
+        return None
+    return pack_maps(kg.class_of, kg.pair_maps, kg.level_classes)
 
 
 class KgramScanResult(NamedTuple):
@@ -144,57 +160,76 @@ class KgramScanResult(NamedTuple):
     iterations: int            # full passes executed
 
 
-def kgram_pass_full(ta, cls_seq, entries):
-    """One full chain pass over NB lanes, (B, NB) columns, with the packed
-    table ``ta``: final states and per-lane accept totals, both (NB,)."""
+def kgram_pass_full(ta: PackedTa, cls_seq, entries, maps: KgramMaps | None = None):
+    """One full chain pass over NB lanes with the packed tables ``ta``: final
+    states and per-lane accept totals, both (NB,). ``cls_seq`` is (B, NB)
+    class-id columns or, with ``maps``, (B, NB, k) raw text."""
+    if maps is not None:
+        return kgram_chain_bytes(ta, maps, cls_seq, entries)
     return kgram_chain(ta, cls_seq, entries)
 
 
 def _speculative_entries(ta, blocks: torch.Tensor, start: int,
-                         overlap: int) -> torch.Tensor:
+                         overlap: int, maps) -> torch.Tensor:
     """Entry guesses for all block lanes: each lane replays the previous
     block's last ``overlap`` steps from the start state (lane 0 pinned to
     the true start)."""
-    num_blocks, b = blocks.shape
+    num_blocks, b = blocks.shape[:2]
     ov = min(overlap, b)
     entries0 = torch.full((num_blocks,), start, dtype=torch.int32,
                           device=blocks.device)
     if ov <= 0:
         return entries0
-    spec, _ = kgram_pass_full(ta, _overlap_seq(blocks, ov), entries0)
+    # lane l replays the tail of block l-1; lane 0's rows are junk
+    tails = torch.cat([blocks[:1, b - ov:], blocks[:-1, b - ov:]], dim=0)
+    spec, _ = kgram_pass_full(ta, tails.transpose(0, 1), entries0, maps)
     spec[0] = start
     return spec
 
 
 def dfa_scan_kgram(
-    ta: torch.Tensor,          # (C_k, S, 2) int32: T_k and A_k (pack_ta)
-    classes_k: torch.Tensor,   # (L/k,) k-gram class ids
+    ta: PackedTa,              # T_k and A_k (pack_ta)
+    classes_k: torch.Tensor,   # (L/k,) k-gram class ids, or (L,) raw bytes
     num_blocks: int = 65536,
     start: int = 0,
     max_iters: int = 16,
     overlap: int = 16,
+    maps: KgramMaps | None = None,
 ) -> KgramScanResult:
     """Speculative chain scan over k-gram steps; returns the final state and
     the exact total match count.
+
+    With ``maps`` (``kgram_maps``), ``classes_k`` is the raw uint8 text, k
+    bytes a step, and the kernel maps it to classes itself; when the maps
+    and the table do not fit in the card's shared memory together, the text
+    is mapped to class ids first (``map_classes``).
 
     Each lane first replays the tail of the previous block (speculation);
     full passes then repeat until the entry vector is a fixpoint, so the
     totals of the converging pass were computed from the true entries.
     ``iterations`` counts those full passes, the first included."""
+    if maps is not None:
+        if classes_k.shape[0] % maps.k:
+            raise ValueError(f"length {classes_k.shape[0]} is not a multiple "
+                             f"of k={maps.k}")
+        if kgram_bytes_supported(ta, maps):
+            classes_k = classes_k.reshape(-1, maps.k)
+        else:
+            classes_k, maps = map_classes(maps, classes_k), None
     l = classes_k.shape[0]
     if l % num_blocks:
         raise ValueError("stream length must be divisible by num_blocks")
     b = l // num_blocks
     dev = classes_k.device
-    blocks = classes_k.reshape(num_blocks, b)
-    cls_seq = blocks.T  # (B, NB) columns over block-major storage
+    blocks = classes_k.reshape(num_blocks, b, *classes_k.shape[1:])
+    cls_seq = blocks.transpose(0, 1)  # (B, NB) columns over block-major storage
     start_t = torch.tensor([start], dtype=torch.int32, device=dev)
 
-    entries = _speculative_entries(ta, blocks, start, overlap)
+    entries = _speculative_entries(ta, blocks, start, overlap, maps)
     finals = totals = torch.zeros(num_blocks, dtype=torch.int32, device=dev)
     converged, it = False, 0
     while not converged and it < max_iters:
-        finals, totals = kgram_pass_full(ta, cls_seq, entries)
+        finals, totals = kgram_pass_full(ta, cls_seq, entries, maps)
         new_entries = torch.cat([start_t, finals[:-1]])
         converged = bool((new_entries == entries).all())
         entries = new_entries

@@ -12,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from regex_fpga_tpu_torch.models import CsrAutomaton, gen_l7_traffic, l7_corpus_nfa
+from regex_fpga_tpu_torch.models import (CsrAutomaton, build_tokenizer_dfa,
+                                         gen_l7_traffic, l7_corpus_nfa)
 from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram, hopper_nfa
+from regex_fpga_tpu_torch.ops import kgram as kgram_ops
 from regex_fpga_tpu_torch.ops.nfa_engine import initial_active
-from regex_fpga_tpu_torch.ops.tables import build_nfa_csr
+from regex_fpga_tpu_torch.ops.tables import build_dfa_tables, build_nfa_csr
 
 pytestmark = pytest.mark.cuda
 
@@ -27,10 +29,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def random_table(rng, c, s, device):
+def random_table(rng, c, s, device, density=0.3):
     table = torch.as_tensor(rng.integers(0, s, size=(c, s)).astype(np.int32),
                             device=device)
-    accept = torch.as_tensor(rng.random(s) < 0.3, device=device)
+    accept = torch.as_tensor(rng.random(s) < density, device=device)
     return table, accept
 
 
@@ -51,15 +53,24 @@ SHAPES = [  # (C, S, B, NB, class dtype, block-major storage)
     (83, 2049, 256, 1024, torch.uint8, True),   # a lazy-DFA snapshot's shape
     (83, 1025, 4096, 1024, torch.uint8, True),  # the Snort lazy snapshot: uint16
     (83, 1400, 97, 257, torch.uint8, True),     # just past the uint16 limit
-    (2, 70_000, 40, 300, torch.int16, False),   # S above 65,535: never narrowed
+    (2, 70_000, 40, 300, torch.int16, False),   # S above 32,767: never narrowed
+    (2, 32_767, 40, 300, torch.uint8, True),    # the largest uint16 table
+    (2, 32_768, 40, 300, torch.uint8, True),    # one state more: global
 ]
 
 # the table route each shape must take on an H100 (227 KB of shared memory a
-# block), in finals mode with uint8 class ids
-ROUTES = {(10, 23): "shared int32", (36, 836): "shared int32",
-          (256, 1024): "global", (37, 5): "shared int32",
+# block), in finals mode with uint8 class ids and 1,024 lanes (a CTA an SM:
+# uint32 entries wherever they fit)
+ROUTES = {(10, 23): "shared uint32", (36, 836): "shared uint32",
+          (256, 1024): "global", (37, 5): "shared uint32",
           (83, 2049): "global", (83, 1025): "shared uint16",
-          (83, 1400): "global", (2, 70_000): "global"}
+          (83, 1400): "global", (2, 70_000): "global",
+          (2, 32_767): "shared uint16", (2, 32_768): "global"}
+# the histogram each takes in counts mode: a private row per lane up to 64
+# states, else a row per stream of the CTA, unless two such rows outgrow
+# shared memory
+HISTS = {s: ("lane rows" if s <= 64 else "stream rows" if s < 30_000
+             else "global") for _, s in ROUTES}
 
 
 @pytest.mark.parametrize("c,s", list(ROUTES))
@@ -68,19 +79,86 @@ def test_dfa_chain_route(cuda, c, s):
     assert route["table"] == ROUTES[(c, s)]
     assert route["table_smem"] == (ROUTES[(c, s)] != "global")
     assert route["lanes_per_cta"] == 128
+    assert not route["accept_folded"]
+    counts = hopper_dfa.dfa_chain_route("counts", c, s, 1024, 4)
+    assert counts["table"] == ROUTES[(c, s)]
+    # one load per step wherever the table is in shared memory
+    assert counts["accept_folded"] == counts["table_smem"]
+    assert counts["hist"] == HISTS[s]
+    assert counts["hist_smem"] == (HISTS[s] != "global")
+    assert route["ring"] in (2, 4, 8) and counts["ring"] in (2, 4, 8)
+
+
+def test_routes_follow_the_lane_count(cuda):
+    """Few lanes (a CTA an SM, nothing else to hide a window's copy behind)
+    take the deepest staging ring that fits; a grid that needs four CTAs an
+    SM keeps them: a shallower ring, and uint16 entries where uint32 ones
+    would leave an SM fewer CTAs."""
+    few = hopper_dfa.dfa_chain_route("finals", 10, 23, 1024)
+    many = hopper_dfa.dfa_chain_route("counts", 10, 23, 65536)
+    assert (few["ring"], many["ring"]) == (8, 4)  # lane rows leave room for four
+    assert few["table"] == many["table"] == "shared uint32"
+    lazy = hopper_dfa.dfa_chain_route("counts", 83, 1025, 1024)
+    assert lazy["table"] == "shared uint16" and lazy["ring"] >= 4
+    assert hopper_dfa.dfa_chain_route("finals", 36, 836, 1024)["table"] == "shared uint32"
+    wide = hopper_dfa.dfa_chain_route("counts", 36, 836, 65536)
+    assert wide["table"] == "shared uint16" and wide["accept_folded"]
+    kg, ta, maps = tokenizer_kgram(2, cuda)
+    assert hopper_kgram.kgram_chain_route(ta, num_lanes=1024)["ring"] == 8
+    assert hopper_kgram.kgram_chain_route(ta, maps, num_lanes=65536)["ring"] in (2, 4)
+
+
+@pytest.mark.parametrize("b", [257, 300, 1031])
+@pytest.mark.parametrize("nb", [200, 65_536])
+@pytest.mark.parametrize("block_major", [True, False])
+def test_chains_longer_than_the_ring(cuda, b, nb, block_major):
+    """More windows than the staging ring holds, the last one partial, at a
+    lane count that takes the ring of eight in every mode and one that takes
+    a shallower one where the output tiles need the room: K1 in every mode,
+    K2, and K3 over class ids and raw text."""
+    rng = np.random.default_rng(b + nb)
+    table, accept = random_table(rng, 10, 23, cuda)
+    cls = class_columns(rng, 11, b, nb, torch.uint8, block_major, cuda)
+    ent = torch.as_tensor(rng.integers(0, 23, size=nb).astype(np.int32),
+                          device=cuda)
+    assert hopper_dfa.dfa_chain_route("finals", 10, 23, nb)["ring"] == 8
+    assert hopper_dfa.dfa_chain_route("counts", 10, 23, nb, 8)["ring"] == (8 if nb == 200 else 4)
+    for mode in hopper_dfa.MODES:
+        for g, w in zip(hopper_dfa.dfa_chain(table, accept, cls, ent, mode),
+                        hopper_dfa.dfa_chain_plain(table, accept, cls, ent, mode)):
+            if g is not None:
+                assert torch.equal(g, w), mode
+    got = hopper_dfa.dfa_chain_counts(table, accept, cls, ent, 8)
+    want = hopper_dfa.dfa_chain_counts_plain(table, accept, cls, ent, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    kg, ta, maps = tokenizer_kgram(2, cuda)
+    ids = class_columns(rng, kg.table.shape[0], b, nb, torch.int16, block_major, cuda)
+    got = hopper_kgram.kgram_chain(ta, ids, ent)
+    want = hopper_kgram.kgram_chain_plain(ta, ids, ent)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    shape = (nb, b, 4) if block_major else (b, nb, 4)
+    raw = torch.as_tensor(rng.integers(0, 256, size=shape).astype(np.uint8), device=cuda)
+    text = raw.transpose(0, 1) if block_major else raw
+    got = hopper_kgram.kgram_chain_bytes(ta, maps, text, ent)
+    want = hopper_kgram.kgram_chain_bytes_plain(ta, maps, text, ent)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("nb", [1, 31, 1024, 65536])
 @pytest.mark.parametrize("b", [1, 31, 33, 64, 95])
 @pytest.mark.parametrize("block_major", [True, False])
-def test_dfa_chain_lanes_steps_and_orders(cuda, nb, b, block_major):
+@pytest.mark.parametrize("c,s", [(83, 1025), (10, 23)])
+def test_dfa_chain_lanes_steps_and_orders(cuda, nb, b, block_major, c, s):
     """Lane counts from one to a full chunk's, steps that are not a
     multiple of the 32-step window, rows that start at any byte, both input
-    orders, on the uint16 route (the Snort lazy snapshot's shape)."""
-    rng = np.random.default_rng(nb + b)
-    table, accept = random_table(rng, 83, 1025, cuda)
-    cls = class_columns(rng, 83, b, nb, torch.uint8, block_major, cuda)
-    ent = torch.as_tensor(rng.integers(0, 1025, size=nb).astype(np.int32),
+    orders, on the uint16 route (the Snort lazy snapshot's shape, a
+    histogram row per stream) and the uint32 route (the tokenizer's shape, a
+    histogram row per lane)."""
+    rng = np.random.default_rng(nb + b + s)
+    table, accept = random_table(rng, c, s, cuda)
+    cls = class_columns(rng, c, b, nb, torch.uint8, block_major, cuda)
+    ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32),
                           device=cuda)
     for mode in hopper_dfa.MODES:
         got = hopper_dfa.dfa_chain(table, accept, cls, ent, mode)
@@ -94,12 +172,14 @@ def test_dfa_chain_lanes_steps_and_orders(cuda, nb, b, block_major):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("c,s", [(83, 1025), (12, 30)])
+@pytest.mark.parametrize("c,s", [(83, 1025), (12, 30), (2, 32_767), (2, 32_768)])
 def test_corrupt_table_on_each_shared_route(cuda, c, s):
     """Entries that uint16 cannot hold (negative, 65,535 and above) and
     entries past S step exactly as in the plain version on the narrowed
-    route (83, 1025) and the int32 route (12, 30); a strided view of the
-    class ids (neither stride 1) is read too."""
+    route (83, 1025), the int32 route (12, 30), the largest table whose
+    entries carry the accept bit in uint16 (S = 32,767) and the first one
+    past it (global memory); a strided view of the class ids (neither stride
+    1) is read too."""
     rng = np.random.default_rng(c)
     table, accept = random_table(rng, c, s, cuda)
     flat = table.view(-1)
@@ -160,24 +240,142 @@ def test_dfa_chain_counts_matches_plain(cuda, c, s, b, nb, dtype, block_major,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("c,s,b,nb,dtype,block_major", [
-    (221, 23, 64, 2048, torch.int32, True),     # tokenizer level-2 k-gram
-    (2049, 40, 32, 512, torch.int32, False),    # class ids above 2048
-    (36, 836, 16, 700, torch.int16, True),      # table above shared memory
+@pytest.mark.parametrize("density", [0.01, 0.95])
+@pytest.mark.parametrize("c,s,lanes_per_stream", [
+    (10, 23, 4096),     # lane rows, CTAs within one stream
+    (10, 23, 48),       # lane rows, streams that end inside a warp
+    (83, 1025, 48),     # uint16 table, stream rows, a CTA across 4 streams
+    (36, 836, 200),     # uint32 table, stream rows
+    (2, 40_000, 200),   # past the uint16 limit: the global route
+    (256, 1024, 1),     # global table, one lane a stream
 ])
-def test_kgram_chain_matches_plain(cuda, c, s, b, nb, dtype, block_major):
-    rng = np.random.default_rng(c)
-    table, _ = random_table(rng, c, s, cuda)
-    acc = torch.as_tensor(rng.integers(0, 5, size=(c, s)).astype(np.int32),
-                          device=cuda)
-    cls = class_columns(rng, c, b, nb, dtype, block_major, cuda)
+def test_dfa_chain_counts_dense_and_sparse_hits(cuda, density, c, s,
+                                                lanes_per_stream):
+    """K2 with nearly every step counted and with nearly none, on each
+    histogram placement, streams cut anywhere relative to the CTAs."""
+    rng = np.random.default_rng(s + lanes_per_stream)
+    n = 7
+    nb = n * lanes_per_stream
+    table, accept = random_table(rng, c, s, cuda, density)
+    accept[int(table[0, 0])] = True  # at least one state counts
+    cls = class_columns(rng, c, 70, nb, torch.uint8, True, cuda)
     ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32),
                           device=cuda)
-    ta = hopper_kgram.pack_ta(table, acc)
-    got = hopper_kgram.kgram_chain(ta, cls, ent)
-    want = hopper_kgram.kgram_chain_plain(ta, cls, ent)
+    got = hopper_dfa.dfa_chain_counts(table, accept, cls, ent, n)
+    want = hopper_dfa.dfa_chain_counts_plain(table, accept, cls, ent, n)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum()) > 0
+
+
+KGRAM_SHAPES = [  # (C, S, largest count, B, NB, class dtype, block-major, table)
+    (221, 23, 4, 64, 2048, torch.int32, True, "shared uint16"),   # tokenizer k=4
+    (2049, 40, 4, 32, 512, torch.int32, False, "shared uint16"),  # ids above 2048
+    (36, 836, 4, 16, 700, torch.int16, True, "shared uint16"),
+    (3, 4095, 4, 33, 300, torch.uint8, True, "shared uint16"),    # the largest
+    (3, 4096, 4, 33, 300, torch.uint8, True, "shared uint32"),    # one state more
+    (8, 5000, 200, 95, 300, torch.int16, False, "shared uint32"),
+    (36, 5000, 4, 31, 300, torch.uint8, True, "global"),   # above shared memory
+    (10, 100, 300, 64, 300, torch.int32, False, "global"),  # counts no form holds
+]
+
+
+@pytest.mark.parametrize("c,s,top,b,nb,dtype,block_major,where", KGRAM_SHAPES)
+def test_kgram_chain_matches_plain(cuda, c, s, top, b, nb, dtype, block_major,
+                                   where):
+    """Both narrow forms and the global route, steps off the window, both
+    storage orders; a tenth of the transitions lead outside the table."""
+    rng = np.random.default_rng(c)
+    table, _ = random_table(rng, c, s, cuda)
+    table.view(-1)[::10] = torch.as_tensor(
+        rng.choice([-3, s, s + 7, 70_001], size=len(table.view(-1)[::10]))
+        .astype(np.int32), device=cuda)
+    acc = torch.as_tensor(rng.integers(0, top + 1, size=(c, s)).astype(np.int32),
+                          device=cuda)
+    acc[0, 0] = top
+    cls = class_columns(rng, c + 1, b, nb, dtype, block_major, cuda)
+    ent = torch.as_tensor(rng.integers(-1, s + 1, size=nb).astype(np.int32),
+                          device=cuda)
+    ta = hopper_kgram.pack_ta(table, acc)
+    assert hopper_kgram.kgram_chain_route(ta, class_dtype=dtype)["table"] == where
+    before = hopper_kgram.LAUNCHES["kgram_chain"]
+    for steps in (b, 1, 2):  # a corrupt final state is read back exactly
+        got = hopper_kgram.kgram_chain(ta, cls[:steps], ent)
+        want = hopper_kgram.kgram_chain_plain(ta, cls[:steps], ent)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert hopper_kgram.LAUNCHES["kgram_chain"] == before + 3
+
+
+def tokenizer_kgram(levels, device):
+    tok = build_tokenizer_dfa()
+    kg = kgram_ops.build_kgram(build_dfa_tables(tok.table, tok.accept,
+                                                device="cpu"), levels=levels)
+    ta = hopper_kgram.pack_ta(torch.as_tensor(kg.table),
+                              torch.as_tensor(kg.acc_table)).to(device)
+    return kg, ta, kgram_ops.kgram_maps(kg).to(device)
+
+
+TEXT = (b"The quick brown fox jumps over 1234 lazy dogs, it's 99.5% fine!  "
+        b"pre-split   benchmark text \xc3\xa9t\xc3\xa9 2026... ")
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("b,nb", [(1, 1), (31, 77), (33, 1000), (256, 4096)])
+@pytest.mark.parametrize("block_major", [True, False])
+def test_kgram_chain_bytes_matches_plain(cuda, levels, b, nb, block_major):
+    """Raw text in, k = 2, 4 and 8 bytes a step, on the tokenizer's tables:
+    half text, half random bytes, both storage orders, and a view that
+    starts off a multiple of k (copied by the wrapper)."""
+    rng = np.random.default_rng(levels + b)
+    kg, ta, maps = tokenizer_kgram(levels, cuda)
+    k = kg.k
+    n = b * nb * k
+    raw = np.where(rng.random(n + 1) < 0.5, np.resize(np.frombuffer(TEXT, np.uint8), n + 1),
+                   rng.integers(0, 256, size=n + 1)).astype(np.uint8)
+    data = torch.as_tensor(raw, device=cuda)
+    ent = torch.as_tensor(rng.integers(0, kg.num_states, size=nb).astype(np.int32),
+                          device=cuda)
+    assert hopper_kgram.kgram_bytes_supported(ta, maps)
+    assert hopper_kgram.kgram_chain_route(ta, maps)["table"] == "shared uint16"
+    for flat in (data[:n], data[1:]):
+        text = (flat.reshape(nb, b, k).transpose(0, 1) if block_major
+                else flat.reshape(b, nb, k))
+        before = hopper_kgram.LAUNCHES["kgram_chain_bytes"]
+        got = hopper_kgram.kgram_chain_bytes(ta, maps, text, ent)
+        assert hopper_kgram.LAUNCHES["kgram_chain_bytes"] == before + 1
+        want = hopper_kgram.kgram_chain_bytes_plain(ta, maps, text, ent)
+        ids = hopper_kgram.kgram_chain(
+            ta, hopper_kgram.map_classes(maps, text)[..., 0], ent)
+        torch.cuda.synchronize()
+        for g, w, i in zip(got, want, ids):
+            assert torch.equal(g, w) and torch.equal(i, w)
+
+
+def test_kgram_bytes_with_maps_above_shared_memory(cuda):
+    """Pair maps of 720 KB: the raw-text kernel refuses them, and the scan
+    maps the classes first and takes the class-id kernel."""
+    rng = np.random.default_rng(5)
+    classes = (256, 600, 50)
+    maps = hopper_kgram.pack_maps(
+        np.arange(256), [rng.integers(0, 600, size=256 * 256),
+                         rng.integers(0, 50, size=600 * 600)], classes).to(cuda)
+    table, _ = random_table(rng, 50, 23, cuda)
+    ta = hopper_kgram.pack_ta(table, table % 5)
+    assert not hopper_kgram.kgram_bytes_supported(ta, maps)
+    data = torch.as_tensor(rng.integers(0, 256, size=64 * 40 * 4).astype(np.uint8),
+                           device=cuda)
+    ent = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="do not fit"):
+        hopper_kgram.kgram_chain_bytes(ta, maps, data.reshape(40, 64, 4), ent)
+    before = dict(hopper_kgram.LAUNCHES)
+    got = kgram_ops.dfa_scan_kgram(ta, data, num_blocks=64, maps=maps)
+    assert hopper_kgram.LAUNCHES["kgram_chain_bytes"] == before["kgram_chain_bytes"]
+    assert hopper_kgram.LAUNCHES["kgram_chain"] > before["kgram_chain"]
+    want = kgram_ops.dfa_scan_kgram(ta.to("cpu"), data.cpu(), num_blocks=64,
+                                    maps=maps.to("cpu"))
+    assert (int(got.total), int(got.final_state), got.converged, got.iterations) == \
+        (int(want.total), int(want.final_state), want.converged, want.iterations)
 
 
 def test_out_of_range_ids_step_like_plain(cuda):
@@ -215,7 +413,10 @@ def test_api_on_card_matches_cpu(cuda):
     on_cpu = api.compile_tokenizer(config=cfg, device="cpu")
     np.testing.assert_array_equal(on_card.scan(text).counts,
                                   on_cpu.scan(text).counts)
-    assert on_card.count(text) == on_cpu.count(text)
+    before = hopper_kgram.LAUNCHES["kgram_chain_bytes"]
+    assert on_card.count(text) == on_cpu.count(text) == on_cpu.scan(text).total
+    # count sends the raw text to the k-gram kernel: no class-id tensor
+    assert hopper_kgram.LAUNCHES["kgram_chain_bytes"] > before
     np.testing.assert_array_equal(on_card.presplit(text),
                                   on_cpu.presplit(text))
     got = on_card.scan(text, collect_positions=True)

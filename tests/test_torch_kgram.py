@@ -174,6 +174,169 @@ def test_kgram_chain_matches_pallas_interpret():
     assert_scan_equal(got, want)
 
 
+def few_class_tables(seed):
+    """A random DFA whose 256 byte columns are copies of 3, so that three
+    levels of pairing stay small."""
+    rng = np.random.default_rng(seed)
+    table, accept = random_dfa_table(rng, 6, 2)
+    return both_tables(table[rng.integers(0, 3, size=256)], accept)
+
+
+def kgram_case(which, levels):
+    """(JAX k-gram tables, port k-gram tables, text) for one automaton."""
+    if which == "tokenizer":
+        jt, pt, _ = tokenizer_tables()
+        text = TEXT
+    else:
+        jt, pt = few_class_tables(levels)
+        text = np.random.default_rng(levels).integers(
+            0, 256, size=8192).astype(np.uint8)
+    kj = jk.build_kgram(jt, levels=levels, max_classes=10_000)
+    kt = tk.build_kgram(pt, levels=levels, max_classes=10_000)
+    assert_kgram_tables_equal(kt, kj)
+    return kj, kt, text
+
+
+@pytest.mark.parametrize("which", ["tokenizer", "random"])
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("block_major", [True, False])
+def test_kgram_chain_bytes_matches_jax(which, levels, block_major):
+    """Raw text through kgram_chain_bytes (its plain version, on the CPU)
+    against the JAX package's map_kgram_classes + kgram_pass_full, in both
+    storage orders. Tolerance 0."""
+    kj, kt, text = kgram_case(which, levels)
+    k = kt.k
+    nb = 16
+    b = len(text) // k // nb
+    ids = jk.map_kgram_classes(kj, text).reshape(nb, b)
+    ent = np.random.default_rng(0).integers(0, kj.num_states, size=nb).astype(np.int32)
+    fj, tj = jk.kgram_pass_full(jnp.asarray(kj.table), jnp.asarray(kj.acc_table),
+                                jnp.asarray(ids.T), jnp.asarray(ent))
+    blocks = torch.as_tensor(text).reshape(nb, b, k)
+    text3 = (blocks.transpose(0, 1) if block_major
+             else blocks.transpose(0, 1).contiguous())
+    ta, maps = packed(kt.table, kt.acc_table), tk.kgram_maps(kt)
+    assert maps.k == k and hopper_kgram.kgram_bytes_supported(ta, maps)
+    for fn in (hopper_kgram.kgram_chain_bytes, hopper_kgram.kgram_chain_bytes_plain,
+               lambda *a: tk.kgram_pass_full(a[0], a[2], a[3], maps=a[1])):
+        ft, tt = fn(ta, maps, text3, torch.as_tensor(ent))
+        np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+    np.testing.assert_array_equal(
+        hopper_kgram.map_classes(maps, torch.as_tensor(text)).numpy(), ids.reshape(-1))
+
+
+@pytest.mark.parametrize("levels,nb,overlap", [(1, 32, 16), (2, 32, 16),
+                                               (2, 8, 0), (3, 1, 16), (3, 16, 4)])
+def test_scan_kgram_raw_text_matches_jax(levels, nb, overlap):
+    """dfa_scan_kgram fed the raw text and the packed maps against the JAX
+    scan over mapped class ids."""
+    jt, pt, start = tokenizer_tables()
+    kj = jk.build_kgram(jt, levels=levels)
+    kt = tk.build_kgram(pt, levels=levels)
+    want = jk.dfa_scan_kgram(jnp.asarray(kj.table), jnp.asarray(kj.acc_table),
+                             jnp.asarray(jk.map_kgram_classes(kj, TEXT)),
+                             num_blocks=nb, start=start, overlap=overlap)
+    got = tk.dfa_scan_kgram(packed(kt.table, kt.acc_table), torch.as_tensor(TEXT),
+                            num_blocks=nb, start=start, overlap=overlap,
+                            maps=tk.kgram_maps(kt))
+    assert_scan_equal(got, want)
+
+
+@pytest.mark.parametrize("s,top,dtype", [
+    (23, 4, np.uint16),        # the tokenizer's size
+    (4095, 4, np.uint16),      # 3 count bits leave 13 for the column offset
+    (4096, 4, np.uint32),
+    (8191, 4, np.uint32), (8192, 4, np.uint32), (8193, 4, np.uint32),
+    (4095, 8, np.uint32),      # a fourth count bit
+    (8191, 3, np.uint16),      # two count bits
+    (20, 255, np.uint16), (200, 255, np.uint32),
+])
+def test_pack_ta_narrow_form_unpacks_exactly(s, top, dtype):
+    """The narrow table decodes to exactly (T_k, A_k), with the largest
+    count present, T_k entries outside [0, S) as column S, and a zero row
+    and column around it."""
+    rng = np.random.default_rng(s)
+    c = 3
+    table = rng.integers(0, s, size=(c, s)).astype(np.int32)
+    acc = rng.integers(0, top + 1, size=(c, s)).astype(np.int32)
+    acc[0, 0], table[0, 0], table[1, 0] = top, s - 1, 0
+    table[2, :4] = [-1, s, s + 5, 2**31 - 1]
+    ta = packed(table, acc)
+    assert ta.entry_bytes == np.dtype(dtype).itemsize
+    assert ta.narrow.numel() * ta.entry_bytes % 16 == 0
+    cols, counts = ta.unpack_narrow()
+    valid = (table >= 0) & (table < s)
+    np.testing.assert_array_equal(cols[:c, :s], np.where(valid, table, s))
+    np.testing.assert_array_equal(counts[:c, :s], acc)
+    assert not cols[c].any() and not cols[:, s].any()
+    assert not counts[c].any() and not counts[:, s].any()
+    np.testing.assert_array_equal(ta.wide[..., 0].numpy(), table)
+    np.testing.assert_array_equal(ta.wide[..., 1].numpy(), acc)
+
+
+@pytest.mark.parametrize("s,eb,want", [
+    (23, 2, 26), (23, 4, 25), (1024, 2, 1026), (836, 2, 838), (4095, 2, 4098),
+    (1, 2, 2), (1, 4, 3), (30, 4, 31), (31, 4, 33),
+])
+def test_narrow_rows_are_an_odd_number_of_words(s, eb, want):
+    """A row of the narrow table holds S + 1 entries and is padded to an odd
+    number of 32-bit words, so that the rows of one column fall into
+    different shared-memory banks; pack_ta lays the table out so."""
+    assert hopper_kgram.row_entries(s, eb) == want
+    words = want * eb // 4
+    assert want >= s + 1 and want * eb % 4 == 0 and words % 2 == 1
+    if eb == 2:
+        table = torch.zeros((3, s), dtype=torch.int32)
+        ta = hopper_kgram.pack_ta(table, table)
+        assert ta.entry_bytes == 2 and ta.narrow.numel() >= 4 * want
+
+
+@pytest.mark.parametrize("s,counts", [
+    (23, [0, -1]),             # a negative count
+    (100, [0, 256]),           # a count above the uint32 form's 8 bits
+    (1 << 22, [0, 1]),         # too many states for 22 column bits
+])
+def test_pack_ta_refuses_what_no_narrow_form_holds(s, counts):
+    table = torch.zeros((1, s), dtype=torch.int32)
+    acc = torch.zeros((1, s), dtype=torch.int32)
+    acc[0, :2] = torch.tensor(counts, dtype=torch.int32)
+    ta = hopper_kgram.pack_ta(table, acc)
+    assert ta.narrow is None and ta.entry_bytes == 0
+    cls = torch.zeros((3, 2), dtype=torch.int32)
+    ent = torch.tensor([0, 1], dtype=torch.int32)
+    finals, totals = hopper_kgram.kgram_chain(ta, cls, ent)  # the wide table
+    assert finals.tolist() == [0, 0]
+    assert totals.tolist() == [counts[0] * 3, counts[1] + counts[0] * 2]
+
+
+def test_pack_maps_validates():
+    jt, pt, _ = tokenizer_tables()
+    kt = tk.build_kgram(pt, levels=2)
+    maps = tk.kgram_maps(kt)
+    assert (maps.k, maps.level_classes) == (4, (10, 49, 221))
+    assert maps.size == 256 + 100 + 2401 and maps.packed.numel() % 8 == 0
+    bad = [m.copy() for m in kt.pair_maps]
+    bad[1][7] = 221  # not a class of the last level
+    with pytest.raises(ValueError, match="not classes"):
+        hopper_kgram.pack_maps(kt.class_of, bad, kt.level_classes)
+    with pytest.raises(ValueError, match="entries"):
+        hopper_kgram.pack_maps(kt.class_of, [kt.pair_maps[0][:-1], kt.pair_maps[1]],
+                               kt.level_classes)
+    with pytest.raises(ValueError, match="levels"):
+        hopper_kgram.pack_maps(kt.class_of, [], kt.level_classes[:1])
+    assert tk.kgram_maps(tk.build_kgram(pt, levels=1)).k == 2
+    ta = packed(kt.table, kt.acc_table)
+    ent = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        hopper_kgram.kgram_chain_bytes(ta, maps, torch.zeros((3, 2, 2), dtype=torch.uint8), ent)
+    with pytest.raises(ValueError, match="one automaton"):
+        hopper_kgram.kgram_chain_bytes(ta, tk.kgram_maps(tk.build_kgram(pt, levels=1)),
+                                       torch.zeros((3, 2, 2), dtype=torch.uint8), ent)
+    with pytest.raises(ValueError, match="multiple"):
+        tk.dfa_scan_kgram(ta, torch.zeros(6, dtype=torch.uint8), num_blocks=1, maps=maps)
+
+
 def test_kgram_wrapper_checks_and_device_rule():
     table = torch.zeros((3, 4), dtype=torch.int32)
     ta = hopper_kgram.pack_ta(table, table)
