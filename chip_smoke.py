@@ -36,10 +36,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bit for bit to the host walk of the portable native build (and a
    prefix to the Python oracle); the launch counts show that K1, K2 and K4
    ran;
-5. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
+5. spans and the matcher surface, each call timed as the median of REPEATS
+   runs with the kernels it launched: compile_regex(...).finditer_arrays over
+   64 MiB of Snort-corpus traffic (three patterns, one with groups; held to
+   the CPU path over 64 MiB and to Python re, search, sub and groups over 1
+   MiB), a 300-keyword literal set (scan_patterns over 64 MiB, held to the
+   native host walk folded per pattern; finditer over 4 MiB, held to a
+   bytes.find loop), the l7 corpus as a mixed anchored rule set
+   ("lazy-device" over 64 MiB, "active-set" over 64 flows of 1 MiB, and
+   prefiltered on "active-set" over 64 flows of 64 KiB that hold different
+   literals; each held to the "lazy" host walk's per-rule counts), the host
+   matchers (a \b pattern over 4 MiB, a backreference over 1 MiB; held to
+   the CPU path and to Python re) and re_compat (count over 64 MiB on the
+   k-gram engine, held to the native host walk; findall over 1 MiB, held to
+   re.findall); the launch counts show that K1, K2, K3 and K4 ran;
+6. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
 
 ``--out DIR`` also writes nvcc's report and the results there.
-``--profile`` adds, after phase 4, one torch.profiler run of each API call
+``--profile`` adds, after phase 5, one torch.profiler run of each API call
 that uses the card (device time in copies and in kernels, and the idle share
 of the call's wall time) and the host-to-device copy of 64 MiB from pageable
 and from pinned memory. The script imports torch, numpy and the port, and nothing
@@ -60,7 +74,7 @@ import torch
 
 MIB = 1 << 20
 SEED = 20261016
-REPEATS = 5  # timed runs per API call in phases 3 and 4; the median is reported
+REPEATS = 5  # timed runs per API call in phases 3-5; the median is reported
 
 # bench.py's synthetic text: word-like structure, so the tokenizer DFA does
 # real work
@@ -615,8 +629,9 @@ def phase_nfa_kernels(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
 
 
 def phase_main_path(dev):
-    """The port's API at full size. Returns the kernel launch counts and
-    the calls, as (label, zero-argument function, bytes) for the profile."""
+    """The port's API at full size. Returns the kernel launch counts, the
+    calls, as (label, zero-argument function, bytes) for the profile, and the
+    keyword traffic of the Aho-Corasick matcher."""
     from regex_fpga_tpu_torch import api
     from regex_fpga_tpu_torch.models import CompiledDfa, build_aho_corasick
     from regex_fpga_tpu_torch.ops.kgram import dfa_scan_kgram, map_kgram_classes
@@ -753,7 +768,7 @@ def phase_main_path(dev):
           f"{rep.total} equals the host walk", flush=True)
     return launches, [(label, (lambda m=card[who], me=method, a=args:
                                run(m, me, a)), nbytes)
-                      for label, who, method, args, nbytes in calls]
+                      for label, who, method, args, nbytes in calls], ac_text
 
 
 # ---------------------------------------------------------------- phase 4
@@ -830,6 +845,267 @@ def phase_nfa_path(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
     return launches, [(label, (lambda mm=m[who], d=data: mm.scan(d)), nbytes)
                       for label, who, data, nbytes in calls
                       if m[who].strategy != "lazy"]
+
+
+# ---------------------------------------------------------------- phase 5
+
+SPAN_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain_bytes",
+             "nfa_active_scan")
+
+
+def native_walk(tables, data: np.ndarray, start: int):
+    """Per-state accept-visit counts and the final state of a serial host
+    walk (the port's native build of ``dfa_scan``), an independent reference
+    for the device scans."""
+    import ctypes
+
+    from regex_fpga_tpu_torch import native
+
+    table = np.ascontiguousarray(tables.table.cpu().numpy(), dtype=np.int32)
+    class_of = np.ascontiguousarray(tables.class_of.cpu().numpy(), dtype=np.int32)
+    accept = np.ascontiguousarray(tables.accept.cpu().numpy(), dtype=np.uint8)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    counts = np.zeros(table.shape[1], dtype=np.int64)
+    ptr = lambda a, t: a.ctypes.data_as(ctypes.POINTER(t))  # noqa: E731
+    final = native.library().dfa_scan(
+        ptr(table, ctypes.c_int32), ptr(class_of, ctypes.c_int32),
+        ptr(accept, ctypes.c_uint8), table.shape[1], ptr(data, ctypes.c_uint8),
+        len(data), int(start), ptr(counts, ctypes.c_int64), None)
+    return counts, int(final)
+
+
+def literal_occurrences(patterns, data: bytes) -> list:
+    """Every (start, end, pattern id) occurrence, overlapping ones
+    included, by a ``bytes.find`` loop per pattern."""
+    out = []
+    for pid, p in enumerate(patterns):
+        i = data.find(p)
+        while i >= 0:
+            out.append((i, i + len(p), pid))
+            i = data.find(p, i + 1)
+    return out
+
+
+def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
+    """Span extraction and the matcher surface through the port's API at the
+    sizes a user scans (64 MiB calls at the JAX defaults): regex spans,
+    literal sets, rule sets, the host matchers and re_compat, each timed as
+    the median of REPEATS runs after a warm-up and held to a reference.
+    Returns the kernel launch counts and the device calls for the profile."""
+    import re
+
+    from regex_fpga_tpu_torch import api, native, re_compat
+    from regex_fpga_tpu_torch.models import gen_l7_patterns, gen_l7_traffic
+    from regex_fpga_tpu_torch.ops.tables import host_to_device
+
+    rng = np.random.default_rng(SEED + 5)
+    cfg = api.EngineConfig(scan_backend="device")
+    prefix = snort_bytes[:MIB].tobytes()
+
+    # the reverse pass reads the stream back to front: a reversed copy on
+    # the host, or the stream uploaded as it lies and flipped on the device
+    t_copy = wall_ms(lambda: host_to_device(snort_bytes[::-1], dev), REPEATS)
+    t_flip = wall_ms(lambda: torch.flip(host_to_device(snort_bytes, dev), (0,)),
+                     REPEATS)
+    print(f"spans: reversing 64 MiB: reversed host copy and upload "
+          f"{np.median(t_copy):.2f} ms (min {min(t_copy):.2f}, max "
+          f"{max(t_copy):.2f}); upload and device flip {np.median(t_flip):.2f} "
+          f"ms (min {min(t_flip):.2f}, max {max(t_flip):.2f})", flush=True)
+
+    # regex spans on Snort-corpus traffic; greedy patterns without
+    # prefix-ordered alternations, so that leftmost-longest spans are the
+    # leftmost-first spans of Python re
+    span_patterns = {"dotted number": rb"[0-9]+(\.[0-9]+)+",
+                     "Host header": rb"Host: [a-z0-9.-]+",
+                     "request line (2 groups)": rb"(GET|POST) (/[a-z0-9/._-]*)"}
+    card = {k: api.compile_regex(p, config=cfg, device=dev)
+            for k, p in span_patterns.items()}
+    # literal sets on phase 3's keyword traffic
+    lits = api.compile_literals(WORDS[:300], cfg, device=dev)
+    ac4 = ac_text[:4 * MIB]
+    # rule sets: the l7 corpus, anchored and unanchored rules (two
+    # partitions), case-insensitive where its pattern file says so
+    l7_pats = gen_l7_patterns()
+    rules = [("(?i)" + p) if icase else p for _, p, icase, _ in l7_pats]
+    check(any(p.startswith("^") for p in rules)
+          and not all(p.startswith("^") for p in rules), "a mixed rule set")
+    l7_flows = np.stack([l7_bytes[o:o + MIB]
+                         for o in rng.integers(0, 63 * MIB, size=64).tolist()])
+    # 64 flows of 64 KiB in 8 groups, each holding the planted payloads of
+    # other rules: their literal sets differ
+    payloads, planted = gen_l7_traffic()
+    noise = [payloads[i] for i in range(len(payloads)) if i not in planted]
+    pre_flows = []
+    for k in range(64):
+        own = [l7_pats[r][3] for r in range((k % 8) * 13, (k % 8) * 13 + 13)]
+        pick = [own[j % 13] if j % 3 == 0 else noise[(j * 7 + k) % len(noise)]
+                for j in range(64)]
+        pre_flows.append(tiled(b"".join(pick), 64 * 1024))
+    rule_dev = api.compile_regex_set(rules, cfg, "lazy-device", device=dev)
+    rule_act = api.compile_regex_set(rules, cfg, "active-set", device=dev)
+    rule_host = api.compile_regex_set(rules, cfg, "lazy", device=dev)
+    pre = api.compile_regex_set_prefiltered(rules, cfg, "active-set",
+                                            device=dev)
+    # host matchers
+    host_pats = {"boundary": rb"\b(?:GET|POST) /[a-z0-9/._-]*",
+                 "backreference": rb"([a-z])\1[0-9]"}
+    host = {k: api.compile_regex(p, config=cfg, device=dev)
+            for k, p in host_pats.items()}
+    check(type(host["boundary"]).__name__ == "HostRegexMatcher"
+          and type(host["backreference"]).__name__ == "HostBacktrackMatcher",
+          "host matcher routing")
+    host4 = snort_bytes[:4 * MIB].tobytes()
+    count_pat = rb"[0-9]+\.[0-9]+"
+    findall_pat = rb"(GET|POST) (/[a-z0-9/._-]*)"
+    check(re_compat.compile(count_pat, device=dev)._m._kgram() is not None,
+          "re_compat.count takes the k-gram engine (S <= 32)")
+
+    calls = {  # key: (label, zero-argument function, bytes)
+        **{("spans", k): (f"finditer_arrays {k} 64 MiB",
+                          (lambda m=m: m.finditer_arrays(snort_bytes)),
+                          snort_bytes.size)
+           for k, m in card.items()},
+        "lit_counts": ("literal set (300 keywords) scan_patterns 64 MiB",
+                       lambda: lits.scan_patterns(ac_text), ac_text.size),
+        "lit_iter": ("literal set (300 keywords) finditer 4 MiB",
+                     lambda: lits.finditer(ac4), ac4.size),
+        "rule_dev": (f"rule set ({len(rules)} l7 rules) lazy-device 64 MiB",
+                     lambda: rule_dev.scan(l7_bytes), l7_bytes.size),
+        "rule_act": (f"rule set ({len(rules)} l7 rules) active-set 64 flows "
+                     f"x 1 MiB", lambda: rule_act.scan(l7_flows), l7_flows.size),
+        "pre": ("prefiltered rule set active-set 64 flows x 64 KiB",
+                lambda: pre.scan(pre_flows), 64 * 64 * 1024),
+        ("host", "boundary"): ("host matcher \\b finditer 4 MiB",
+                               lambda: host["boundary"].finditer(host4),
+                               len(host4)),
+        ("host", "backreference"): (
+            "host matcher backreference finditer 1 MiB",
+            lambda: host["backreference"].finditer(prefix), len(prefix)),
+        "count": ("re_compat.count 64 MiB",
+                  lambda: re_compat.count(count_pat, snort_bytes, device=dev),
+                  snort_bytes.size),
+        "findall": ("re_compat.findall 1 MiB",
+                    lambda: re_compat.findall(findall_pat, prefix, device=dev),
+                    len(prefix)),
+    }
+    reset_launches()
+    got, device_calls = {}, []
+    for key, (label, fn, nbytes) in calls.items():
+        before = launch_counters()
+        got[key] = fn()  # warm-up: reversed and anchored automata, lazy DFAs
+        ms = wall_ms(fn, REPEATS)
+        med = float(np.median(ms))
+        after = launch_counters()
+        used = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        print(f"spans: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
+              f"{REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max {max(ms):.2f}), "
+              f"launches {json.dumps(used)}", flush=True)
+        if used:
+            device_calls.append((label, fn, nbytes))
+    launches = launch_counters()
+    print(f"spans: launches {json.dumps(launches)}", flush=True)
+    for name in SPAN_PATH:
+        check(launches[name] > 0, f"{name} launched on the span path")
+
+    # where a span call's time goes: the device stage (upload, K1 passes,
+    # compaction, download), then the host stage
+    def split(label, device_stage, host_stage, items):
+        dev_ms = float(np.median(wall_ms(device_stage, REPEATS)))
+        host_ms = float(np.median(wall_ms(host_stage, REPEATS)))
+        print(f"spans: {label}: device stage {dev_ms:.2f} ms, host stage "
+              f"{host_ms:.2f} ms ({items}; medians of {REPEATS})", flush=True)
+
+    for k, m in card.items():
+        starts = m._match_starts(snort_bytes)
+        table, accept, dead, eof = m._anchored_np
+        split(f"finditer_arrays {k}", lambda m=m: m._match_starts(snort_bytes),
+              lambda m=m, t=table, a=accept, d=dead, e=eof, st=starts:
+              native.anchored_spans(t, a, e, m._anchored_start, d, snort_bytes,
+                                    st),
+              f"backward pass; native forward walk from {len(starts)} starts")
+    ends, states = lits._scan_match_states(ac4)
+    split("literal set finditer", lambda: lits._scan_match_states(ac4),
+          lambda: [(e, s_) for e, s_ in zip(ends.tolist(), states.tolist())
+                   for _ in lits.ac.outputs[s_]],
+          f"K1 full mode and the gather; the Python list of "
+          f"{len(got['lit_iter'])} tuples")
+    hm = host["boundary"]
+    host4_np = np.frombuffer(host4, np.uint8)
+    cand = hm._candidate_starts(host4_np)
+    split("host matcher \\b finditer",
+          lambda: hm._candidate_starts(host4_np),
+          lambda: [hm._prog.longest_end_at(host4, s0) for s0 in cand.tolist()],
+          f"envelope backward pass; the Pike VM at {len(cand)} candidates")
+
+    # references
+    t0 = time.perf_counter()
+    for k, p in span_patterns.items():
+        spans = got[("spans", k)]
+        want = api.compile_regex(p, config=cfg, device="cpu").finditer_arrays(
+            snort_bytes)
+        check(np.array_equal(spans, want), f"{k}: 64 MiB spans equal the CPU path")
+        check(len(spans) > 1000, f"{k}: {len(spans)} spans")
+        m = card[k]
+        ref = list(re.finditer(p, prefix))
+        check(m.finditer_arrays(prefix).tolist() == [list(r.span()) for r in ref],
+              f"{k}: 1 MiB spans equal re.finditer")
+        check([g.regs for g in m.finditer_matches(prefix)]
+              == [r.regs for r in ref], f"{k}: groups equal re.finditer's")
+        s, r = m.search(prefix, 1000), re.compile(p).search(prefix, 1000)
+        check(r is not None and s.regs == r.regs, f"{k}: search equals re.search")
+        check(m.sub(b"<>", prefix) == re.sub(p, b"<>", prefix),
+              f"{k}: sub equals re.sub")
+    print(f"spans: every span call equals the CPU path over 64 MiB and "
+          f"Python re over 1 MiB ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    counts, final = native_walk(lits.tables, ac_text, lits.start)
+    if lits._accept_eof[final]:
+        counts[final] += 1
+    per = got["lit_counts"].pattern_counts[0]
+    check(np.array_equal(per, lits.ac.pattern_counts(counts[None])[0]),
+          "literal set: per-pattern counts equal the host walk's fold")
+    occ = got["lit_iter"]
+    check(sorted(occ) == sorted(literal_occurrences(WORDS[:300], ac4.tobytes())),
+          "literal set: 4 MiB occurrences equal a bytes.find loop")
+    print(f"spans: literal set: {int(per.sum())} occurrences over 64 MiB equal "
+          f"the native host walk folded per pattern, and {len(occ)} over 4 MiB "
+          f"a bytes.find loop ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    for key, data in (("rule_dev", l7_bytes), ("rule_act", l7_flows),
+                      ("pre", pre_flows)):
+        want = rule_host.scan(data).rule_counts
+        check(np.array_equal(got[key].rule_counts, want),
+              f"{calls[key][0]}: per-rule counts equal the lazy host walk")
+        check(int(want.sum()) > 0, f"{calls[key][0]}: rules matched")
+    subsets = len(pre._subs)
+    check(1 < subsets <= pre.max_cached_subsets, f"{subsets} candidate subsets")
+    print(f"spans: rule sets: lazy-device, active-set and the prefiltered set "
+          f"({pre.num_prefiltered} of {len(rules)} rules behind literals, "
+          f"{subsets} candidate subsets) equal the lazy host walk's per-rule "
+          f"counts ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    for k, data in (("boundary", host4), ("backreference", prefix)):
+        spans = got[("host", k)]
+        cpu = api.compile_regex(host_pats[k], config=cfg,
+                                device="cpu").finditer(data)
+        check(spans == cpu, f"{k}: spans equal the CPU path")
+        check(spans == [r.span() for r in re.finditer(host_pats[k], data)],
+              f"{k}: spans equal re.finditer")
+        check(len(spans) > 0, f"{k}: matches found")
+    m = re_compat.compile(count_pat, device=dev)._m
+    counts, final = native_walk(m.tables, snort_bytes, m.start)
+    check(got["count"] == int(counts.sum()) + int(bool(m._accept_eof[final])),
+          "re_compat.count equals the native host walk")
+    check(got["findall"] == re.findall(findall_pat, prefix),
+          "re_compat.findall equals re.findall")
+    print(f"spans: host matchers equal the CPU path and re.finditer; "
+          f"re_compat.count ({got['count']}) equals the native host walk and "
+          f"re_compat.findall re.findall ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return launches, device_calls
 
 
 # ------------------------------------------------------------ --profile
@@ -931,12 +1207,14 @@ def main(argv=None) -> int:
     kernel_times["nfa_active_scan"] = phase_nfa_kernels(
         dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes, kernel_times)
 
-    dfa_launches, calls = phase_main_path(dev)
+    dfa_launches, calls, ac_text = phase_main_path(dev)
     nfa_launches, nfa_calls = phase_nfa_path(dev, snort_aut, snort_bytes,
                                              l7_aut, l7_bytes)
-    launches = {k: dfa_launches[k] + nfa_launches[k] for k in KERNELS}
+    span_launches, span_calls = phase_spans(dev, snort_bytes, l7_bytes, ac_text)
+    launches = {k: dfa_launches[k] + nfa_launches[k] + span_launches[k]
+                for k in KERNELS}
     if args.profile:
-        phase_profile(dev, calls + nfa_calls, args.out)
+        phase_profile(dev, calls + nfa_calls + span_calls, args.out)
 
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,

@@ -1,28 +1,41 @@
-"""Public API of the torch port: DFA matchers and the NFA conformance engine.
+"""Public API of the torch port: DFA matchers, span extraction, the matcher
+surface and the NFA conformance engine.
 
-The counterpart of the DFA and NFA halves of ``regex_fpga_tpu/api.py``::
+The counterpart of ``regex_fpga_tpu/api.py`` without the Snort and l7
+matchers::
 
     m = compile_regex(r"\\d+\\.\\d+", device="cuda")  # fast DFA engine
     report = m.scan(data)                               # per-state counts
     total = m.count(data)                               # k-gram engine
+    spans = m.finditer(data)                            # leftmost-longest
+    hit = m.search(data)                                # Match or None
 
     tok = compile_tokenizer(device="cuda")              # GPT-2 pre-split
     offsets = tok.presplit(text)
+
+    lits = compile_literals([b"GET", b"POST"], device="cuda")
+    per_pattern = lits.scan_patterns(data).pattern_counts
+
+    rules = compile_regex_set(patterns, strategy="lazy-device", device="cuda")
+    per_rule = rules.scan([flow_a, flow_b]).rule_counts
 
     nfa = compile_ruleset("rules.coe", strategy="lazy-device", device="cuda")
     report = nfa.scan([flow_a, flow_b])                 # per-NFA-state counts
 
 A matcher holds its tables on ``device`` and scans every chunk there; the
 chain passes and the active-set scan run on the Hopper kernels for a CUDA
-device and on their plain versions for the CPU. Results equal the JAX
-package's bit for bit.
+device and on their plain versions for the CPU. Span extraction runs a
+reversed-pattern DFA backward over the stream on the device (every match
+start) and then the anchored forward walk on the host (native
+``anchored_spans``). Patterns with ``\\b``/``\\B``, ``(?m)`` anchors or lazy
+quantifiers go to ``HostRegexMatcher`` (a device prefilter, then the Pike VM
+of ``models/captures.py``), and patterns with backreferences, lookaround or
+conditionals to ``HostBacktrackMatcher`` (``models/backtrack.py``). Results
+equal the JAX package's bit for bit.
 
 Not in this package yet: the engine router and the host DFA walker
-(``scan_backend="auto"`` and ``"host"``; the router chooses between the
-device and the host engines), span extraction (``finditer``/``search``/
-``findall``, which needs the reverse matcher), and the host matchers that
-``compile_regex`` returns for patterns with assertions, lazy quantifiers or
-backreferences. Each raises ``NotImplementedError``.
+(``scan_backend="auto"`` and ``"host"``), which raise
+``NotImplementedError``, and the Snort and l7 matchers.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from .models import (
     CsrAutomaton,
     LazyDfa,
     TokenizerDfa,
+    build_aho_corasick,
     build_tokenizer_dfa,
     compile_pattern,
     contains_backtrack,
@@ -47,6 +61,17 @@ from .models import (
     contains_lazy,
     load_coe,
     parse_pattern,
+    regexes_to_csr,
+    write_coe,
+)
+from .models.backtrack import BacktrackProgram
+from .models.captures import CaptureProgram
+from .models.regex import (
+    DfaBlowupError,
+    RegexError,
+    nullable,
+    required_literal,
+    strip_assertions,
 )
 from .ops.dfa_engine import dfa_scan_blocked, dfa_scan_serial
 from .ops.dfa_fast import dfa_scan_fast, dfa_scan_fast_multi, mask_positions
@@ -78,12 +103,23 @@ __all__ = [
     "DfaMatcher",
     "DfaStreamScanner",
     "EngineConfig",
+    "HostBacktrackMatcher",
+    "HostRegexMatcher",
     "LazyStreamScanner",
+    "LiteralReport",
+    "LiteralSetMatcher",
+    "Match",
     "NfaMatcher",
     "NfaStreamScanner",
+    "PrefilteredRuleSet",
+    "RuleSetMatcher",
+    "RuleSetReport",
     "ScanReport",
     "TokenizerMatcher",
+    "compile_literals",
     "compile_regex",
+    "compile_regex_set",
+    "compile_regex_set_prefiltered",
     "compile_ruleset",
     "compile_tokenizer",
 ]
@@ -108,6 +144,127 @@ class ScanReport:
         return {int(i): int(c) for i, c in enumerate(row) if c}
 
 
+class Match:
+    """``re.Match``-style result: a byte-offset span and capture groups.
+
+    The overall span comes from the device engines (POSIX leftmost-longest);
+    group sub-spans are recovered on the host by the tagged Pike VM
+    (``models/captures.py``) re-walking just the matched bytes, with greedy
+    (Perl-style) disambiguation inside the fixed span. Matchers without a
+    capture program (rule sets, literals, tokenizers) yield group-0-only
+    matches."""
+
+    __slots__ = ("string", "_start", "_end", "_spans", "_names",
+                 "_lastindex", "pos", "endpos", "re")
+
+    def __init__(self, string: bytes, start: int, end: int,
+                 group_spans: list | None = None,
+                 group_names: dict | None = None,
+                 lastindex: int | None = None):
+        self.string = string
+        self._start = start
+        self._end = end
+        self._spans = group_spans or []  # per group 1..n: (a, b) or None
+        self._names = group_names or {}
+        self._lastindex = lastindex
+        # ``re.Match`` attributes: the search window and the producing
+        # pattern. The span entry points restamp ``pos``;
+        # ``re_compat.Pattern`` attaches itself as ``re``.
+        self.pos = 0
+        self.endpos = len(string)
+        self.re = None
+
+    def _idx(self, key) -> int:
+        if isinstance(key, str):
+            if key not in self._names:
+                raise IndexError(f"no such group: {key!r}")
+            return self._names[key]
+        if key == 0 or 1 <= key <= len(self._spans):
+            return key
+        raise IndexError(f"no such group: {key}")
+
+    def span(self, idx=0) -> tuple[int, int]:
+        idx = self._idx(idx)
+        if idx == 0:
+            return (self._start, self._end)
+        sp = self._spans[idx - 1]
+        return (-1, -1) if sp is None else sp
+
+    def start(self, idx=0) -> int:
+        return self.span(idx)[0]
+
+    def end(self, idx=0) -> int:
+        return self.span(idx)[1]
+
+    def group(self, *idxs):
+        if not idxs:
+            idxs = (0,)
+        out = []
+        for i in idxs:
+            a, b = self.span(i)
+            out.append(None if a < 0 else self.string[a:b])
+        return out[0] if len(out) == 1 else tuple(out)
+
+    def groups(self, default=None) -> tuple:
+        return tuple(
+            default if sp is None else self.string[sp[0]:sp[1]]
+            for sp in self._spans
+        )
+
+    def groupdict(self, default=None) -> dict:
+        return {name: self.group(name) if self._spans[i - 1] is not None
+                else default
+                for name, i in self._names.items()}
+
+    @property
+    def lastindex(self) -> int | None:
+        """Index of the chronologically last matched group (``re``
+        semantics: the last capture mark written on the winning path)."""
+        return self._lastindex
+
+    @property
+    def lastgroup(self) -> str | None:
+        """Name of the last matched group; None if unnamed or none."""
+        if self._lastindex is None:
+            return None
+        for name, i in self._names.items():
+            if i == self._lastindex:
+                return name
+        return None
+
+    @property
+    def regs(self) -> tuple:
+        """All group spans as ``re``'s ``regs`` tuple ((-1, -1) = no
+        match), group 0 first."""
+        return ((self._start, self._end),) + tuple(
+            (-1, -1) if sp is None else tuple(sp) for sp in self._spans
+        )
+
+    def expand(self, template: bytes) -> bytes:
+        """Expand a ``re.sub``-style template (``\\1``, ``\\g<name>``, ...)
+        against this match."""
+        from .re_compat import _expand  # re_compat imports this module
+
+        return _expand(template, self)
+
+    def __getitem__(self, idx) -> bytes:
+        return self.group(idx)
+
+    def __repr__(self) -> str:
+        return (f"<regex_fpga_tpu_torch.Match span=({self._start}, "
+                f"{self._end}) match={self.group()!r}>")
+
+
+def _stamp_pos(m: Match | None, pos: int) -> Match | None:
+    """Record the caller's clamped ``pos`` on a Match (``re.Match.pos``).
+    ``endpos`` needs no stamp: ``Match.string`` is already the
+    endpos-truncated subject, so its default ``len(string)`` is the clamped
+    endpos."""
+    if m is not None:
+        m.pos = pos
+    return m
+
+
 def _as_streams(data) -> list[np.ndarray]:
     if isinstance(data, (bytes, bytearray, memoryview)):
         return [np.frombuffer(data, dtype=np.uint8)]
@@ -122,6 +279,7 @@ def _as_streams(data) -> list[np.ndarray]:
 class _FallbackResult(NamedTuple):
     counts: torch.Tensor      # (S,) int64 per-state match counts
     match_mask: torch.Tensor  # (L,) bool: accept fired before byte i
+    states: torch.Tensor      # (L,) int32: state before byte i
     final_state: int
     iterations: int = 0
 
@@ -160,6 +318,13 @@ class DfaMatcher:
         # it separately from the per-position mask
         self._accept_eof = np.asarray(accept_eof)
         self.start = start
+        # span extraction: compile_regex sets the source; the reversed and
+        # anchored automata and the capture program are built at first use
+        self._finditer_source: tuple | None = None
+        self._reverse_matcher: DfaMatcher | None = None
+        self._anchored_np: tuple | None = None
+        self._anchored_start = 0
+        self._capture_prog = None  # CaptureProgram, or False: no groups
 
     @property
     def num_states(self) -> int:
@@ -363,12 +528,18 @@ class DfaMatcher:
         self._last_final = cur
         return counts, mask, iters, converged
 
-    def _mask_chunk_device(self, raw_chunk: np.ndarray, cur: int):
+    def _mask_chunk_device(self, raw_chunk: np.ndarray, cur: int,
+                           reverse: bool = False):
         """One chunk's (match mask, final state) via the k=1 mask scan, or
         via the exact path when the scan does not converge; the mask stays
-        on the device."""
+        on the device. ``reverse`` scans the chunk's bytes back to front:
+        the chunk is uploaded as it lies and flipped on the device."""
+        data = self._upload(raw_chunk)
+        if reverse:
+            data = torch.flip(data, (0,))
+        classes = torch.index_select(self._class_lut, 0, data.int())
         res = dfa_scan_fast(
-            self.tables, self._classes(raw_chunk),
+            self.tables, classes,
             num_blocks=self._pick_blocks(len(raw_chunk)), start=cur,
             max_iters=self.config.max_iters, emit="mask",
         )
@@ -377,21 +548,28 @@ class DfaMatcher:
                 "device DFA pass produced out-of-domain state ids: corrupt table"
             )
         if not res.converged:
-            res = self._exact_fallback(raw_chunk, cur)
+            res = self._exact_fallback(raw_chunk[::-1] if reverse else raw_chunk,
+                                       cur)
         return res.match_mask, int(res.final_state)
 
-    def _scan_match_positions(self, stream: np.ndarray) -> np.ndarray:
+    def _scan_match_positions(self, stream: np.ndarray,
+                              reverse: bool = False) -> np.ndarray:
         """Byte offsets where the accept mask is set, compacted on the
         device (``mask_positions``): each chunk downloads a count and the
         positions instead of the whole mask; chunks denser than cap/chunk
-        take ``nonzero`` of the mask instead. Sets ``self._last_final``.
-        Returns ascending int64 offsets."""
+        take ``nonzero`` of the mask instead. ``reverse`` scans
+        ``stream[::-1]`` (offsets are into the reversed stream) without a
+        reversed copy on the host. Sets ``self._last_final``. Returns
+        ascending int64 offsets."""
         out = [np.empty(0, np.int64)]
         cur = self.start
         cb = self.config.chunk_bytes
-        for off in range(0, len(stream), cb):
-            chunk = stream[off : off + cb]
-            mask, cur_next = self._mask_chunk_device(chunk, cur)
+        l = len(stream)
+        for off in range(0, l, cb):
+            # reversed stream [off, off + n) = stream[l - off - n : l - off]
+            chunk = (stream[max(l - off - cb, 0) : l - off] if reverse
+                     else stream[off : off + cb])
+            mask, cur_next = self._mask_chunk_device(chunk, cur, reverse)
             cap = max(1024, len(chunk) // 4)
             pos_dev, count_dev = mask_positions(mask, cap)
             count = int(count_dev)
@@ -403,6 +581,39 @@ class DfaMatcher:
             cur = cur_next
         self._last_final = cur
         return np.concatenate(out)
+
+    def _scan_match_states(self, stream: np.ndarray):
+        """The states path: byte offsets where the accept mask is set and
+        the state before each of those bytes, from K1's full mode (or the
+        exact path); positions come from the mask on the device and the
+        states are gathered there, so 12 bytes a match leave the device
+        instead of 5 a byte. Sets ``self._last_final``. Returns (ascending
+        int64 offsets, int32 states)."""
+        pos_out = [np.empty(0, np.int64)]
+        st_out = [np.empty(0, np.int32)]
+        cur = self.start
+        cb = self.config.chunk_bytes
+        for off in range(0, len(stream), cb):
+            raw = stream[off : off + cb]
+            res = dfa_scan_fast(
+                self.tables, self._classes(raw),
+                num_blocks=self._pick_blocks(len(raw)), start=cur,
+                max_iters=self.config.max_iters, emit="full",
+            )
+            if not bool(res.domain_ok):
+                raise RuntimeError(
+                    "device DFA pass produced out-of-domain state ids: "
+                    "corrupt table"
+                )
+            if not res.converged:
+                res = self._exact_fallback(raw, cur)
+            pos = torch.nonzero(res.match_mask).reshape(-1)
+            st_out.append(torch.index_select(res.states, 0, pos).cpu().numpy()
+                          .astype(np.int32, copy=False))
+            pos_out.append(pos.cpu().numpy() + off)
+            cur = int(res.final_state)
+        self._last_final = cur
+        return np.concatenate(pos_out), np.concatenate(st_out)
 
     def _scan_batch_counts(self, arr: np.ndarray):
         """Chunked batch scan of (N, L) equal-length streams via
@@ -534,20 +745,321 @@ class DfaMatcher:
         counts = torch.zeros(self.num_states, dtype=torch.int64,
                              device=self.device)
         masks = [torch.zeros(0, dtype=torch.bool, device=self.device)]
+        states = [torch.zeros(0, dtype=torch.int32, device=self.device)]
         cur = int(start)
         if main:
             res = dfa_scan_blocked(self.tables, self._upload(chunk_bytes[:main]),
                                    block_size=block, start=cur)
             counts += res.counts
             masks.append(res.match_mask)
+            states.append(res.states)
             cur = int(res.final_state)
         if main < len(chunk_bytes):
             res = dfa_scan_serial(self.tables, chunk_bytes[main:], start=cur)
             counts += res.counts
             masks.append(res.match_mask)
+            states.append(res.states)
             cur = int(res.final_state)
         return _FallbackResult(counts=counts, match_mask=torch.cat(masks),
-                               final_state=cur)
+                               states=torch.cat(states), final_state=cur)
+
+    # ------------------------------------------------------ span extraction
+
+    def _ensure_anchored(self) -> None:
+        """Build the reversed-pattern matcher (on the same device and
+        config) and the anchored automaton that span extraction uses, at
+        first use: scan-only users never pay for them."""
+        if self._finditer_source is not None and self._reverse_matcher is None:
+            pattern, max_states, config = self._finditer_source
+            rev = compile_pattern(pattern, max_states=max_states,
+                                  anchored=False, reverse=True)
+            self._reverse_matcher = DfaMatcher(rev, config, self.device)
+            fwd = compile_pattern(pattern, max_states=max_states, anchored=True)
+            self._anchored_np = (np.ascontiguousarray(fwd.table), fwd.accept,
+                                 fwd.dead, fwd.eof_accept)
+            self._anchored_start = fwd.start
+        if self._reverse_matcher is None or self._anchored_np is None:
+            raise NotImplementedError(
+                "span extraction requires a pattern-compiled matcher "
+                "(compile_regex)"
+            )
+
+    def _anchored_longest_end(self, stream: np.ndarray, s0: int) -> int:
+        """Longest match end for a match anchored at byte offset ``s0``
+        (host walk of the anchored DFA), or -1 if no match starts there."""
+        table, accept, dead, accept_eof = self._anchored_np
+        st = self._anchored_start
+        last_end = s0 if accept[st] else -1
+        l = len(stream)
+        for i in range(s0, l):
+            st = int(table[stream[i], st])
+            if st == dead:
+                return last_end
+            if accept[st]:
+                last_end = i + 1
+        if accept_eof[st] and not accept[st]:
+            last_end = l  # end-anchored: the match closes at EOF only
+        return last_end
+
+    def _make_match(self, raw: bytes, a: int, b: int) -> Match:
+        """A Match, with capture-group spans when the source pattern has
+        groups (the tagged Pike VM re-walks ``raw[a:b]``)."""
+        if self._capture_prog is None:
+            prog = (None if self._finditer_source is None
+                    else CaptureProgram(self._finditer_source[0]))
+            self._capture_prog = (prog if prog is not None and prog.num_groups
+                                  else False)
+        if self._capture_prog is False:
+            return Match(raw, a, b)
+        prog = self._capture_prog
+        spans, lastindex = prog.extract(raw, a, b)
+        return Match(raw, a, b, spans, prog.group_names, lastindex)
+
+    @property
+    def num_groups(self) -> int:
+        self._make_match(b"", 0, 0)  # builds the capture program
+        return 0 if self._capture_prog is False else self._capture_prog.num_groups
+
+    def finditer(self, data, limit: int | None = None,
+                 pos: int = 0, endpos: int | None = None
+                 ) -> list[tuple[int, int]]:
+        """Non-overlapping (start, end) spans, POSIX leftmost-longest.
+
+        Two passes: the reversed-pattern DFA scans the stream backward on
+        the device and marks every position where some match starts; then
+        anchored forward walks on the host (native ``anchored_spans``) take
+        the longest match at each leftmost start. Differs from Python ``re``
+        for patterns like ``ab|abc``, where backtracking takes the first
+        alternative. ``limit`` stops after that many spans (``search``), and
+        then the forward walk runs in Python, so that it stops at the first
+        span. ``pos``/``endpos`` follow ``re.Pattern.finditer``: these
+        patterns carry no context assertion, so scanning the suffix and
+        shifting is exact, except that ``^`` never matches at ``pos > 0``.
+        """
+        if pos or endpos is not None:
+            raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos,
+                                      endpos)
+            if not ok or (pos and self._pattern_start_anchored()):
+                return []
+            return [(a + pos, b + pos)
+                    for a, b in self.finditer(raw[pos:], limit)]
+        self._ensure_anchored()
+        stream = _as_streams(data)[0]
+        if len(stream) == 0:
+            # a nullable pattern matches the empty string once
+            end = self._anchored_longest_end(stream, 0)
+            return [(0, 0)] if end == 0 else []
+        starts = self._match_starts(stream)
+        if limit is None:
+            table, accept, dead, accept_eof = self._anchored_np
+            out = native.anchored_spans(table, accept, accept_eof,
+                                        self._anchored_start, dead, stream,
+                                        starts)
+            spans = [(int(a), int(b)) for a, b in out]
+            return self._append_tail_empty(spans, stream)
+        spans: list[tuple[int, int]] = []
+        p = 0
+        for s0 in starts.tolist():
+            if s0 < p:
+                continue
+            last_end = self._anchored_longest_end(stream, s0)
+            if last_end >= 0:
+                spans.append((s0, last_end))
+                if len(spans) >= limit:
+                    return spans
+                p = max(last_end, s0 + 1)  # empty match: advance one byte
+        return self._append_tail_empty(spans, stream)
+
+    def _match_starts(self, stream: np.ndarray) -> np.ndarray:
+        """Ascending candidate match starts from the backward pass (shared
+        by ``finditer`` and ``finditer_arrays``)."""
+        self._ensure_anchored()
+        return _starts_from_reverse(self._reverse_matcher, stream)
+
+    def _append_tail_empty(self, spans, stream):
+        """A nullable pattern matches empty at the end of the buffer (``re``
+        yields ``(l, l)``); the backward pass has no slot for start == l, so
+        it is appended here when the last span leaves room for it."""
+        l = len(stream)
+        if spans:
+            a, b = spans[-1]
+            p = max(b, a + 1)
+        else:
+            p = 0
+        if p <= l and self._anchored_longest_end(stream, l) == l:
+            spans.append((l, l))
+        return spans
+
+    def finditer_arrays(self, data) -> np.ndarray:
+        """Spans as an (N, 2) int64 array: the content of ``finditer``
+        without building N Python tuples (match-dense streams have
+        millions)."""
+        self._ensure_anchored()
+        stream = _as_streams(data)[0]
+        if len(stream) == 0:
+            return np.asarray(self.finditer(stream), dtype=np.int64).reshape(-1, 2)
+        l = len(stream)
+        table, accept, dead, accept_eof = self._anchored_np
+        out = native.anchored_spans(table, accept, accept_eof,
+                                    self._anchored_start, dead, stream,
+                                    self._match_starts(stream))
+        if len(out):
+            p = max(int(out[-1, 1]), int(out[-1, 0]) + 1)
+        else:
+            p = 0
+        if p <= l and self._anchored_longest_end(stream, l) == l:
+            out = np.concatenate([out, [[l, l]]], axis=0)
+        return out
+
+    def finditer_matches(self, data, limit: int | None = None) -> list[Match]:
+        """Like ``finditer``, with ``Match`` objects (capture groups
+        included) instead of bare spans."""
+        raw = bytes(_as_streams(data)[0])
+        return [self._make_match(raw, a, b)
+                for a, b in self.finditer(raw, limit)]
+
+    # -- re-module conveniences (span semantics: leftmost-longest)
+
+    def _pattern_start_anchored(self) -> bool:
+        """Leading ``^`` (not multiline): ``re``'s ``search``/``match``
+        with ``pos > 0`` never match, since ``pos`` is not slicing."""
+        cached = getattr(self, "_start_anchored_cache", None)
+        if cached is None:
+            cached = bool(self._finditer_source) and parse_pattern(
+                self._finditer_source[0]).start_anchored
+            self._start_anchored_cache = cached
+        return cached
+
+    @staticmethod
+    def _clip(raw, pos: int, endpos):
+        """``re``'s pos/endpos rules (bytes or arrays): ``pos`` clamps to
+        ``[0, len]`` first, ``endpos`` truncates the subject (``$`` and
+        lookahead see the end there), and ``pos > endpos`` after clamping
+        means no match at all. Returns (subject, clamped pos, ok)."""
+        n = len(raw)
+        pos = min(max(int(pos), 0), n)
+        if endpos is not None:
+            e = min(max(int(endpos), 0), n)
+            if pos > e:
+                return raw[:e], pos, False
+            raw = raw[:e]
+        return raw, pos, True
+
+    def search(self, data, pos: int = 0, endpos: int | None = None
+               ) -> Match | None:
+        """First (leftmost-longest) match in the stream, or None.
+        ``pos``/``endpos`` follow ``re.Pattern.search``."""
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok:
+            return None
+        if pos:
+            if self._pattern_start_anchored():
+                return None
+            spans = [(a + pos, b + pos)
+                     for a, b in self.finditer(raw[pos:], limit=1)]
+        else:
+            spans = self.finditer(raw, limit=1)
+        if not spans:
+            return None
+        a, b = spans[0]
+        return _stamp_pos(self._make_match(raw, a, b), pos)
+
+    def match(self, data, pos: int = 0, endpos: int | None = None
+              ) -> Match | None:
+        """Longest match anchored at ``pos``, or None (``re.match``)."""
+        self._ensure_anchored()
+        stream, pos, ok = self._clip(_as_streams(data)[0], pos, endpos)
+        if not ok or (pos and self._pattern_start_anchored()):
+            return None
+        end = self._anchored_longest_end(stream, pos)
+        if end < 0:
+            return None
+        return _stamp_pos(self._make_match(bytes(stream), pos, end), pos)
+
+    def fullmatch(self, data, pos: int = 0, endpos: int | None = None
+                  ) -> Match | None:
+        """Match spanning ``[pos, endpos)``, or None (``re.fullmatch``)."""
+        self._ensure_anchored()
+        stream, pos, ok = self._clip(_as_streams(data)[0], pos, endpos)
+        if not ok or (pos and self._pattern_start_anchored()):
+            return None
+        table, accept, dead, accept_eof = self._anchored_np
+        st = self._anchored_start
+        for b in stream[pos:].tolist():
+            st = int(table[b, st])
+            if st == dead:
+                return None
+        if accept[st] or accept_eof[st]:
+            return _stamp_pos(self._make_match(bytes(stream), pos, len(stream)),
+                              pos)
+        return None
+
+    def split(self, data, maxsplit: int = 0) -> list[bytes]:
+        """Split the stream on matches (``re.split`` without groups); empty
+        matches split as in Python 3.7+ ``re``."""
+        raw = bytes(_as_streams(data)[0])
+        out: list[bytes] = []
+        p = 0
+        for n, (a, b) in enumerate(self.finditer(raw)):
+            if maxsplit and n >= maxsplit:
+                break
+            out.append(raw[p:a])
+            p = b
+        out.append(raw[p:])
+        return out
+
+    def sub(self, repl, data, count: int = 0) -> bytes:
+        """Replace matches with ``repl`` (bytes, or callable(Match) ->
+        bytes)."""
+        return self.subn(repl, data, count)[0]
+
+    def subn(self, repl, data, count: int = 0) -> tuple[bytes, int]:
+        raw = bytes(_as_streams(data)[0])
+        pieces: list[bytes] = []
+        p = 0
+        n = 0
+        for a, b in self.finditer(raw):
+            if count and n >= count:
+                break
+            pieces.append(raw[p:a])
+            pieces.append(
+                repl(self._make_match(raw, a, b)) if callable(repl) else repl
+            )
+            p = b
+            n += 1
+        pieces.append(raw[p:])
+        return b"".join(pieces), n
+
+    def findall(self, data) -> list[bytes]:
+        raw = bytes(_as_streams(data)[0])
+        return [raw[a:b] for a, b in self.finditer(data)]
+
+    def findall_ends(self, data) -> np.ndarray:
+        """Byte offsets at which a match ends (just past its last byte, as
+        ``re.Match.end()``)."""
+        stream = _as_streams(data)[0]
+        ends = self._scan_match_positions(stream)
+        if (self.include_final_match and len(stream)
+                and self._accept_eof[self._last_final]):
+            ends = np.concatenate([ends, [len(stream)]])
+        return ends
+
+
+def _starts_from_reverse(rm: DfaMatcher, stream: np.ndarray) -> np.ndarray:
+    """Ascending candidate match starts from one backward device pass of
+    the reversed-pattern matcher ``rm`` (shared by
+    ``DfaMatcher._match_starts`` and the host matcher's envelope
+    prefilter). The reverse engine reports accept at reversed position p
+    (the state before byte p of the reversed stream), which is a reverse
+    match over reversed bytes [.., p): an original start l - p. p = 0 is
+    start l, which the backward pass cannot see; the reverse matcher's
+    end-of-stream accept (read on ``rm``) is start 0."""
+    l = len(stream)
+    pos = rm._scan_match_positions(stream, reverse=True)
+    starts = (l - pos[pos > 0])[::-1]  # ascending, unique
+    if rm._accept_eof[rm._last_final]:
+        starts = np.concatenate([np.zeros(1, np.int64), starts])
+    return starts
 
 
 class DfaStreamScanner:
@@ -639,33 +1151,440 @@ class TokenizerMatcher(DfaMatcher):
         return [text[a:b] for a, b in zip(starts, starts[1:] + [len(text)])]
 
 
+_UNSET = object()
+
+
+def _dead_dfa() -> CompiledDfa:
+    """The 2-state all-dead automaton under the host matchers: it fills the
+    base class's tables, and no device entry point ever scans it."""
+    return CompiledDfa(table=np.ones((256, 2), dtype=np.int32),
+                       accept=np.zeros(2, dtype=bool), start=0, dead=1)
+
+
+class HostRegexMatcher(DfaMatcher):
+    """Matcher for patterns with ``\\b``/``\\B`` word boundaries, ``(?m)``
+    line anchors or lazy quantifiers.
+
+    A boundary is not expressible in the streaming DFA engines, whose accept
+    is a function of the state at a position alone: a trailing ``\\b`` needs
+    the next byte. Span search therefore runs in two stages:
+
+    1. **device prefilter**: the assertion-stripped envelope DFA (a superset
+       language) is scanned backward on the device, as
+       ``DfaMatcher.finditer``'s reversed pass, and yields every candidate
+       match start;
+    2. **host verify**: the Pike VM (``models/captures.py``) checks the
+       assertions at those candidates only, with the same POSIX
+       leftmost-longest spans as the device path (leftmost-first for lazy
+       quantifiers, as Python ``re``).
+
+    Patterns whose envelope is nullable (a bare ``\\b``) or does not compile
+    take the pure host walk. The device-throughput APIs (``scan``,
+    ``count``, ``stream_scanner``, ``findall_ends``) raise, and so does
+    every internal device entry point of the base class.
+    """
+
+    def __init__(self, pattern: str | bytes,
+                 config: EngineConfig = DEFAULT_CONFIG, device=None):
+        super().__init__(_dead_dfa(), config, device)
+        pp = parse_pattern(pattern)
+        self._prog = CaptureProgram(pp)
+        #: lazy quantifiers switch spans to leftmost-first (Python ``re``);
+        #: otherwise POSIX leftmost-longest, as the device engines
+        self._first_mode = contains_lazy(pp.node)
+        self._finditer_source = (pattern, 0, config)
+        self._capture_prog = self._prog if self._prog.num_groups else False
+        self._envelope = _UNSET  # reversed envelope matcher, or None
+
+    def _ensure_envelope(self):
+        """The reversed assertion-stripped envelope matcher of the device
+        prefilter, built at first use; None when it cannot prune (nullable)
+        or does not compile (state blowup)."""
+        if self._envelope is _UNSET:
+            pattern = self._finditer_source[0]
+            env = None
+            if not nullable(strip_assertions(parse_pattern(pattern).node)):
+                try:
+                    rev = compile_pattern(pattern, anchored=False,
+                                          reverse=True, strip=True)
+                except (RegexError, DfaBlowupError):
+                    rev = None
+                if rev is not None:
+                    env = DfaMatcher(rev, self.config, self.device)
+            self._envelope = env
+        return self._envelope
+
+    def _candidate_starts(self, stream: np.ndarray) -> np.ndarray | None:
+        """Ascending candidate match starts from the device envelope scan (a
+        superset of the true starts), or None without an envelope."""
+        env = self._ensure_envelope()
+        if env is None or len(stream) == 0:
+            return None
+        return _starts_from_reverse(env, stream)
+
+    def _no_device(self, name: str):
+        raise NotImplementedError(
+            f"{name}() runs on the streaming DFA engines, which cannot "
+            "express \\b/\\B, (?m) anchors or lazy quantifiers (accept would "
+            "depend on the next byte); use search/match/fullmatch/finditer/"
+            "findall/split/sub, or drop the assertion for device-rate "
+            "scanning"
+        )
+
+    def scan(self, data, collect_positions: bool = False):
+        self._no_device("scan")
+
+    def count(self, data):
+        self._no_device("count")
+
+    def stream_scanner(self, resume: dict | None = None):
+        self._no_device("stream_scanner")
+
+    def findall_ends(self, data):
+        self._no_device("findall_ends")
+
+    # every internal device entry point fails loudly too: the dead 2-state
+    # automaton must never be scanned silently
+    def _kgram(self):
+        self._no_device("_kgram")
+
+    def _scan_stream(self, stream):
+        self._no_device("_scan_stream")
+
+    def _mask_chunk_device(self, raw_chunk, cur, reverse=False):
+        self._no_device("_mask_chunk_device")
+
+    def _scan_match_positions(self, stream, reverse=False):
+        self._no_device("_scan_match_positions")
+
+    def _scan_match_states(self, stream):
+        self._no_device("_scan_match_states")
+
+    def _scan_stream_counts(self, stream, start=None):
+        self._no_device("_scan_stream_counts")
+
+    def _scan_batch_counts(self, arr):
+        self._no_device("_scan_batch_counts")
+
+    def _scan_ragged_counts(self, streams):
+        self._no_device("_scan_ragged_counts")
+
+    def _anchored_longest_end(self, stream, s0: int) -> int:
+        # the base span helpers must not read the dead anchored tables
+        return (self._prog.first_end_at(bytes(stream), s0) if self._first_mode
+                else self._prog.longest_end_at(bytes(stream), s0))
+
+    def finditer(self, data, limit: int | None = None,
+                 pos: int = 0, endpos: int | None = None
+                 ) -> list[tuple[int, int]]:
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok or (pos and self._pattern_start_anchored()):
+            return []
+        stream = np.frombuffer(raw, dtype=np.uint8)
+        starts = self._candidate_starts(stream)
+        if starts is None:  # nullable or uncompilable envelope: pure host
+            if self._first_mode:
+                return self._prog.finditer_spans_first(raw, limit,
+                                                       start_at=pos)
+            return self._prog.finditer_spans(raw, limit, start_at=pos)
+        # the Pike VM verifies only the device's candidates. The candidates
+        # are a superset of the true starts, and both walks take the
+        # leftmost matching start, then the longest (or lazy-first) end,
+        # without overlap; a non-nullable envelope cannot match empty.
+        end_at = (self._prog.first_end_at if self._first_mode
+                  else self._prog.longest_end_at)
+        spans: list[tuple[int, int]] = []
+        p = pos  # assertion context before pos stays visible (re's rule)
+        for s0 in starts.tolist():
+            if s0 < p:
+                continue
+            end = end_at(raw, s0)
+            if end >= 0:
+                spans.append((s0, end))
+                if limit is not None and len(spans) >= limit:
+                    return spans
+                p = max(end, s0 + 1)
+        return spans
+
+    def finditer_arrays(self, data) -> np.ndarray:
+        return np.asarray(self.finditer(data), dtype=np.int64).reshape(-1, 2)
+
+    def search(self, data, pos: int = 0, endpos: int | None = None
+               ) -> Match | None:
+        # pos is native here: the Pike VM keeps the context before pos
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok:
+            return None
+        spans = self.finditer(raw, limit=1, pos=pos)
+        if not spans:
+            return None
+        a, b = spans[0]
+        return _stamp_pos(self._make_match(raw, a, b), pos)
+
+    def match(self, data, pos: int = 0, endpos: int | None = None
+              ) -> Match | None:
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok or (pos and self._pattern_start_anchored()):
+            return None
+        end = self._anchored_longest_end(raw, pos)
+        return None if end < 0 else _stamp_pos(
+            self._make_match(raw, pos, end), pos)
+
+    def fullmatch(self, data, pos: int = 0, endpos: int | None = None
+                  ) -> Match | None:
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok or (pos and self._pattern_start_anchored()):
+            return None
+        if self._prog.longest_end_at(raw, pos) == len(raw):
+            return _stamp_pos(self._make_match(raw, pos, len(raw)), pos)
+        return None
+
+
+class HostBacktrackMatcher(HostRegexMatcher):
+    """Matcher for patterns with backreferences, lookaround or conditionals.
+
+    None of them fits the device engines (backreferences are not regular;
+    lookaround reads bytes past the position) nor the tagged Pike VM, whose
+    thread merge assumes that the future depends only on (state, position).
+    These patterns run the host backtracking engine (``models/backtrack.py``)
+    with Python ``re`` semantics end to end: leftmost-first spans, greedy and
+    lazy backtracking order, fixed-width lookbehind, captures kept out of a
+    positive lookahead. The device-throughput APIs raise, as for
+    ``HostRegexMatcher``; there is no device prefilter."""
+
+    def __init__(self, pattern: str | bytes,
+                 config: EngineConfig = DEFAULT_CONFIG,
+                 max_steps: int | None = None, device=None):
+        DfaMatcher.__init__(self, _dead_dfa(), config, device)
+        #: ``max_steps``: an opt-in budget of backtracking steps per search
+        #: or match (None: unlimited, as ``re``); exceeding it raises
+        #: ``models.backtrack.BacktrackLimitExceeded``
+        self._bt = BacktrackProgram(parse_pattern(pattern),
+                                    max_steps=max_steps)
+        self._finditer_source = (pattern, 0, config)
+        self._capture_prog = False  # groups come from the engine itself
+
+    @property
+    def num_groups(self) -> int:
+        return self._bt.num_groups
+
+    def _make_match(self, raw: bytes, a: int, b: int) -> Match:
+        m = self._bt.match_at(raw, a)
+        if (m is None or m[0] != b) and b > a:
+            # the span may come from Python 3.7+'s empty-match rule
+            # (finditer resumes at an empty match's end with the empty
+            # match there refused); an unbanned re-run can prefer the empty
+            # match, so re-run with it banned to get the groups of the span
+            # that was emitted
+            m = self._bt.match_at(raw, a, ban_empty=True)
+        if m is None or m[0] != b:
+            return Match(raw, a, b)
+        _, groups, lastindex = m
+        return Match(raw, a, b, groups[1:], self._bt.group_names, lastindex)
+
+    def search(self, data, pos: int = 0, endpos: int | None = None
+               ) -> Match | None:
+        # pos is native: the backtracker keeps lookbehind context
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok:
+            return None
+        m = self._bt.search_spans(raw, pos)
+        if m is None:
+            return None
+        groups, lastindex = m[2], m[3]
+        return _stamp_pos(
+            Match(raw, m[0], m[1], groups[1:], self._bt.group_names,
+                  lastindex), pos)
+
+    def finditer(self, data, limit: int | None = None,
+                 pos: int = 0, endpos: int | None = None
+                 ) -> list[tuple[int, int]]:
+        # Python 3.7+'s empty-match rule (as BacktrackProgram.finditer_spans):
+        # resume at an empty match's end with only the empty match there
+        # refused
+        raw, start, ok = self._clip(bytes(_as_streams(data)[0]), pos,
+                                    endpos)
+        if not ok:
+            return []
+        spans: list[tuple[int, int]] = []
+        pos, ban, n = start, -1, len(raw)
+        while pos <= n:
+            m = self._bt.search_spans(raw, pos, ban_empty_at=ban)
+            if m is None:
+                break
+            s, e = m[0], m[1]
+            spans.append((s, e))
+            if limit is not None and len(spans) >= limit:
+                break
+            if self._bt.pp.start_anchored:
+                break
+            pos = e
+            ban = e if s == e else -1
+            if s == e and e == n:
+                break
+        return spans
+
+    def match(self, data, pos: int = 0, endpos: int | None = None
+              ) -> Match | None:
+        return self._anchored_match(data, pos, endpos, full=False)
+
+    def fullmatch(self, data, pos: int = 0, endpos: int | None = None
+                  ) -> Match | None:
+        return self._anchored_match(data, pos, endpos, full=True)
+
+    def _anchored_match(self, data, pos, endpos, full: bool) -> Match | None:
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok or (pos and self._bt.pp.start_anchored):
+            return None
+        m = self._bt.match_at(raw, pos, full=full)
+        if m is None:
+            return None
+        end, groups, lastindex = m
+        return _stamp_pos(
+            Match(raw, pos, end, groups[1:], self._bt.group_names,
+                  lastindex), pos)
+
+    def _anchored_longest_end(self, stream, s0: int) -> int:
+        m = self._bt.match_at(bytes(stream), s0)
+        return -1 if m is None else m[0]
+
+
 def compile_regex(pattern: str | bytes, anchored: bool = False,
                   max_states: int = 100_000,
                   config: EngineConfig = DEFAULT_CONFIG,
+                  max_steps: int | None = None,
                   device=None) -> DfaMatcher:
     """Compile a pattern to the fast DFA engine. Default is scanning
     (unanchored) mode: a match is reported wherever it ends in the stream.
+    The matcher also gives leftmost-longest spans (``finditer``, ``search``,
+    ``findall``, ...) through a reversed-pattern backward scan.
 
-    Patterns that the JAX package hands to its host matchers (``\\b``/
-    ``\\B``, ``(?m)`` anchors, lazy quantifiers, backreferences, lookaround,
-    conditionals) raise ``NotImplementedError``: those matchers are not
-    ported yet."""
+    Patterns with ``\\b``/``\\B``, ``(?m)`` anchors or lazy quantifiers
+    return a ``HostRegexMatcher``; patterns with backreferences, lookaround
+    or conditionals ``(?(id)yes|no)`` a ``HostBacktrackMatcher``, whose
+    opt-in ``max_steps`` bounds catastrophic backtracking (the linear-time
+    engines ignore it)."""
     node = parse_pattern(pattern).node
-    if (contains_backtrack(node) or contains_bound(node)
-            or contains_lazy(node)):
-        raise NotImplementedError(
-            "this pattern needs a host regex matcher, which the torch port "
-            "does not have yet (ROADMAP.md, 'Modules to port', the matcher "
-            "surface)"
-        )
+    if contains_backtrack(node):
+        return HostBacktrackMatcher(pattern, config, max_steps=max_steps,
+                                    device=device)
+    if contains_bound(node) or contains_lazy(node):
+        return HostRegexMatcher(pattern, config, device)
     dfa = compile_pattern(pattern, max_states=max_states, anchored=anchored)
-    return DfaMatcher(dfa, config, device)
+    m = DfaMatcher(dfa, config, device)
+    # the reversed and anchored automata of span extraction compile at
+    # first use
+    m._finditer_source = (pattern, max_states, config)
+    return m
 
 
 def compile_tokenizer(pattern: str = GPT2_PRESPLIT,
                       config: EngineConfig = DEFAULT_CONFIG,
                       device=None) -> TokenizerMatcher:
     return TokenizerMatcher(build_tokenizer_dfa(pattern), config, device)
+
+
+@dataclasses.dataclass
+class LiteralReport:
+    """Per-pattern occurrence counts (streams x patterns) and the per-state
+    report under them."""
+
+    pattern_counts: np.ndarray  # (num_streams, num_patterns) int64
+    report: ScanReport
+
+    def histogram(self, stream: int = 0) -> dict[int, int]:
+        row = self.pattern_counts[stream]
+        return {int(i): int(c) for i, c in enumerate(row) if c}
+
+
+class LiteralSetMatcher(DfaMatcher):
+    """Multi-literal (Aho-Corasick) matcher on the fast DFA engines.
+
+    Reports every occurrence of every literal, overlapping and nested
+    included (Snort content-match semantics), unlike the regex path's
+    non-overlapping leftmost-longest spans. ``scan``/``count`` count
+    match-ending positions; ``scan_patterns`` folds them into exact
+    per-pattern totals through the automaton's output sets."""
+
+    def __init__(self, ac, config: EngineConfig = DEFAULT_CONFIG, device=None):
+        super().__init__(ac.dfa, config, device)
+        self.ac = ac
+
+    @property
+    def num_patterns(self) -> int:
+        return len(self.ac.patterns)
+
+    def scan_patterns(self, data) -> LiteralReport:
+        rep = self.scan(data)
+        return LiteralReport(pattern_counts=self.ac.pattern_counts(rep.counts),
+                             report=rep)
+
+    def finditer(self, data, limit: int | None = None,
+                 pos: int = 0, endpos: int | None = None):
+        """All (start, end, pattern_id) occurrences, by end, overlapping
+        ones included. ``pos``/``endpos`` follow ``re`` (a span lies wholly
+        inside ``[pos, endpos)``; literals carry no context, so scanning the
+        suffix and shifting is exact). The ends and the state at each come
+        from the device (``_scan_match_states``)."""
+        if pos or endpos is not None:
+            raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos,
+                                      endpos)
+            if not ok:
+                return []
+            return [(a + pos, b + pos, pid)
+                    for a, b, pid in self.finditer(raw[pos:], limit)]
+        stream = _as_streams(data)[0]
+        if len(stream) == 0:
+            return []
+        ends, states = self._scan_match_states(stream)
+        ends, states = ends.tolist(), states.tolist()
+        if self._accept_eof[self._last_final]:
+            ends.append(len(stream))
+            states.append(self._last_final)
+        spans: list[tuple[int, int, int]] = []
+        outputs, patterns = self.ac.outputs, self.ac.patterns
+        for e, st in zip(ends, states):
+            for pid in outputs[st]:
+                spans.append((e - len(patterns[pid]), e, pid))
+                if limit is not None and len(spans) >= limit:
+                    return spans
+        return spans
+
+    def findall(self, data) -> list[bytes]:
+        raw = bytes(_as_streams(data)[0])
+        return [raw[a:b] for a, b, _ in self.finditer(raw)]
+
+    def search(self, data, pos: int = 0, endpos: int | None = None
+               ) -> Match | None:
+        """Earliest-ending occurrence of any literal, or None."""
+        raw, pos, ok = self._clip(bytes(_as_streams(data)[0]), pos, endpos)
+        if not ok:
+            return None
+        hits = self.finditer(raw, limit=1, pos=pos)
+        if not hits:
+            return None
+        a, b, _ = hits[0]
+        return _stamp_pos(Match(raw, a, b), pos)
+
+    def match(self, data) -> Match | None:
+        """Longest literal that is a prefix of the stream, or None."""
+        raw = bytes(_as_streams(data)[0])
+        best = -1
+        for p in self.ac.patterns:
+            if len(p) > best and raw.startswith(p):
+                best = len(p)
+        return Match(raw, 0, best) if best >= 0 else None
+
+    def fullmatch(self, data) -> Match | None:
+        raw = bytes(_as_streams(data)[0])
+        return Match(raw, 0, len(raw)) if raw in self.ac.patterns else None
+
+
+def compile_literals(patterns, config: EngineConfig = DEFAULT_CONFIG,
+                     device=None) -> LiteralSetMatcher:
+    """Compile a set of literal byte strings (Aho-Corasick) into one dense
+    DFA on the fast engines, with per-pattern occurrence counts."""
+    return LiteralSetMatcher(build_aho_corasick(patterns), config, device)
 
 
 # ------------------------------------------------------------------ NFA
@@ -893,3 +1812,190 @@ def compile_ruleset(source: str | CsrAutomaton,
     bit-exact NFA engine."""
     aut = load_coe(source) if isinstance(source, str) else source
     return NfaMatcher(aut, config, strategy, device)
+
+
+# ------------------------------------------------------------- rule sets
+
+
+@dataclasses.dataclass
+class RuleSetReport:
+    """Per-rule match counts (streams x rules) and the per-state report
+    under them. ``report`` is None for a mixed anchored/unanchored set: it
+    scans as two CSR partitions whose state spaces do not line up, so only
+    the per-rule counts mean anything there."""
+
+    rule_counts: np.ndarray  # (num_streams, num_rules) int64
+    report: ScanReport | None
+
+    def histogram(self, stream: int = 0) -> dict[int, int]:
+        row = self.rule_counts[stream]
+        return {int(i): int(c) for i, c in enumerate(row) if c}
+
+
+class RuleSetMatcher:
+    """Multi-rule matcher: a set of regexes compiled into CSR NFA(s) of the
+    reference's convention and scanned by the bit-exact NFA engine
+    (``NfaMatcher``, any strategy, on ``device``), with per-rule counts.
+
+    Anchored (``^``) and unanchored rules cannot share one CSR hub (the
+    always-active hub would fire anchored rules again at every byte), so a
+    mixed set compiles into two partitions scanned one after the other;
+    counts merge by rule index. A pure set stays one automaton and can be
+    written as a ``.coe`` image."""
+
+    def __init__(self, patterns, config: EngineConfig = DEFAULT_CONFIG,
+                 strategy: str = "lazy", device=None):
+        self.patterns = list(patterns)
+        flags = [parse_pattern(p).start_anchored for p in self.patterns]
+        #: (rule indices, owner, NfaMatcher) per partition
+        self._parts = []
+        for anchored in (False, True):
+            idx = [i for i, a in enumerate(flags) if a == anchored]
+            if idx:
+                aut, owner = regexes_to_csr([self.patterns[i] for i in idx])
+                self._parts.append(
+                    (idx, owner, NfaMatcher(aut, config, strategy, device)))
+        if len(self._parts) == 1:
+            self.owner = self._parts[0][1]
+            self.matcher = self._parts[0][2]
+            self.automaton = self.matcher.automaton
+        else:
+            self.owner = self.matcher = self.automaton = None
+
+    @property
+    def num_rules(self) -> int:
+        return len(self.patterns)
+
+    def scan(self, data) -> RuleSetReport:
+        streams = _as_streams(data)
+        per = np.zeros((len(streams), self.num_rules), np.int64)
+        rep = None
+        for idx, owner, matcher in self._parts:
+            rep = matcher.scan(streams)
+            for k, i in enumerate(idx):
+                per[:, i] = rep.counts[:, owner == k].sum(axis=1)
+        return RuleSetReport(rule_counts=per,
+                             report=rep if len(self._parts) == 1 else None)
+
+    def export_coe(self, path: str) -> None:
+        """Write the rule set as a ``.coe`` image the reference loads."""
+        if self.automaton is None:
+            raise ValueError(
+                "mixed anchored/unanchored rulesets compile to two CSR "
+                "partitions and have no single .coe image; export pure "
+                "subsets separately"
+            )
+        write_coe(path, self.automaton.to_words())
+
+
+def compile_regex_set(patterns, config: EngineConfig = DEFAULT_CONFIG,
+                      strategy: str = "lazy", device=None) -> RuleSetMatcher:
+    """Compile a list of patterns into one multi-rule NFA rule set with
+    per-rule match counts (IDS style)."""
+    return RuleSetMatcher(patterns, config, strategy, device)
+
+
+class PrefilteredRuleSet:
+    """Literal-prefiltered regex-set matcher (Hyperscan style).
+
+    Each pattern with a ``required_literal`` (a byte string in every match,
+    ``models/regex.py``) is guarded by one Aho-Corasick prefilter scanned on
+    the fast DFA engines; a stream pays for the NFA rule set only over the
+    rules whose literals it holds (and the rules without a usable literal).
+    Counts equal ``compile_regex_set(...).scan(...)``: a stream without a
+    rule's required literal cannot match that rule. Sub-rule-sets compile at
+    first use and are cached per candidate subset, up to
+    ``max_cached_subsets``; past it the full rule set answers."""
+
+    def __init__(self, patterns, config: EngineConfig = DEFAULT_CONFIG,
+                 strategy: str = "lazy", min_literal: int = 3, device=None):
+        self.patterns = list(patterns)
+        self.config = config
+        self.strategy = strategy
+        self.device = resolve_device(device)
+        lits: list[bytes] = []
+        self._lit_owner: list[int] = []
+        self.always_check: list[int] = []
+        for i, p in enumerate(self.patterns):
+            lit = required_literal(parse_pattern(p).node)
+            if lit is not None and len(lit) >= min_literal:
+                lits.append(lit)
+                self._lit_owner.append(i)
+            else:
+                self.always_check.append(i)
+        self._ac = (compile_literals(lits, config, self.device) if lits
+                    else None)
+        #: bounded subset cache: diverse traffic could otherwise drive up to
+        #: 2^num_prefiltered compiles; past the cap the full rule set (one
+        #: compile, always sound) answers instead of evicting into thrash
+        self._subs: dict[tuple, RuleSetMatcher] = {}
+        self.max_cached_subsets = 64
+        self._full: RuleSetMatcher | None = None
+
+    @property
+    def num_rules(self) -> int:
+        return len(self.patterns)
+
+    @property
+    def num_prefiltered(self) -> int:
+        return len(self._lit_owner)
+
+    def _sub(self, subset: tuple) -> tuple[RuleSetMatcher, tuple]:
+        """The matcher of a candidate subset and the rule indices it
+        reports; past the cache cap, the full rule set's (scanning more
+        rules is sound; the caller slices the counts)."""
+        m = self._subs.get(subset)
+        if m is not None:
+            return m, subset
+        if len(self._subs) < self.max_cached_subsets:
+            m = RuleSetMatcher([self.patterns[i] for i in subset],
+                               self.config, self.strategy, self.device)
+            self._subs[subset] = m
+            return m, subset
+        if self._full is None:
+            self._full = RuleSetMatcher(self.patterns, self.config,
+                                        self.strategy, self.device)
+        return self._full, tuple(range(self.num_rules))
+
+    def scan(self, data) -> RuleSetReport:
+        streams = _as_streams(data)
+        per = np.zeros((len(streams), self.num_rules), np.int64)
+        # one device pass of the literal set over every stream decides the
+        # candidates
+        lit_hits = (self._ac.scan_patterns(streams).pattern_counts
+                    if self._ac is not None
+                    else np.zeros((len(streams), 0), np.int64))
+        groups: dict[tuple, list[int]] = {}
+        for s, row in enumerate(lit_hits):
+            cand = sorted(self.always_check
+                          + [self._lit_owner[j] for j in np.nonzero(row)[0]])
+            groups.setdefault(tuple(cand), []).append(s)
+        for subset, members in groups.items():
+            if not subset:
+                continue
+            m, scanned = self._sub(subset)
+            rep = m.scan([streams[s] for s in members])
+            cols = list(subset)
+            for k, s in enumerate(members):
+                per[s, cols] = (rep.rule_counts[k] if scanned == subset
+                                else rep.rule_counts[k][cols])
+        report = ScanReport(
+            counts=np.zeros((len(streams), 0), np.int64),
+            total=int(per.sum()), match_positions=None,
+            metrics=RunMetrics(
+                engine=f"prefiltered-{self.strategy}",
+                bytes_scanned=sum(len(s) for s in streams),
+                streams=len(streams), matches=int(per.sum()),
+                wall_seconds=0.0,
+            ),
+        )
+        return RuleSetReport(rule_counts=per, report=report)
+
+
+def compile_regex_set_prefiltered(
+    patterns, config: EngineConfig = DEFAULT_CONFIG, strategy: str = "lazy",
+    min_literal: int = 3, device=None,
+) -> PrefilteredRuleSet:
+    """Literal-prefiltered ``compile_regex_set``: the same counts, with the
+    streams that cannot match rejected at device rate."""
+    return PrefilteredRuleSet(patterns, config, strategy, min_literal, device)

@@ -4,7 +4,8 @@ numpy-only ``regex_fpga_tpu/models`` modules.
 The port imports nothing of the JAX package. The modules here are copies of
 the ones the port and ``chip_smoke.py`` use (``coe``, ``csr``,
 ``export_csr``, ``regex``, ``lazy_dfa``, ``literals``, ``oracle``,
-``snort``, ``snort_corpus``, ``l7_corpus``, ``tokenizer_dfa``), with their
+``snort``, ``snort_corpus``, ``l7_corpus``, ``tokenizer_dfa``, and
+``captures`` and ``backtrack`` for the span API's host matchers), with their
 relative imports; ``tests/test_torch_models.py`` holds each to its original
 on seeded inputs. ``LazyDfa`` differs in one point: its host walks run on the
 portable native build (``regex_fpga_tpu_torch.native``) and never on a

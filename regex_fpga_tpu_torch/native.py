@@ -1,15 +1,16 @@
 """The native host walker, built from source without ``-march=native``.
 
 The lazy subset DFA (``models.LazyDfa``) walks the host through the C++
-scanners of ``native/golden_scan.cpp``. The JAX package loads them from a
+scanners of ``native/golden_scan.cpp``, and so does the forward stage of
+span extraction (``anchored_spans``). The JAX package loads them from a
 library committed beside that source and built with ``-march=native``, which
 can die of an illegal instruction on another CPU instead of raising. The
 port never opens that file: at first use it compiles the same source with
 ``g++ -O3 -shared -fPIC`` (portable code for the running architecture) into
 ``build/native/`` at the repository root, under a name that carries a digest
-of the source and the flags. Every ``LazyDfa`` of the port and
-``nfa_match_positions`` call this library; the JAX package's bindings are
-neither imported nor touched. A missing ``g++`` or a failed build raises;
+of the source and the flags. Every ``LazyDfa`` of the port,
+``nfa_match_positions`` and ``anchored_spans`` call this library; the JAX
+package's bindings are neither imported nor touched. A missing ``g++`` or a failed build raises;
 the port never drops to a Python walk.
 """
 
@@ -25,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["BUILD_DIR", "SOURCE", "GXX_FLAGS", "library",
+__all__ = ["BUILD_DIR", "SOURCE", "GXX_FLAGS", "anchored_spans", "library",
            "nfa_match_positions"]
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -130,3 +131,32 @@ def nfa_match_positions(delta: np.ndarray, class_of: np.ndarray,
         if n >= 0:
             return out[:n]
         cap = min(cap * 4, len(stream) + 1)
+
+
+def anchored_spans(table: np.ndarray, accept: np.ndarray,
+                   accept_eof: np.ndarray, start_state: int, dead: int,
+                   stream: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """The forward stage of span extraction: from each ascending candidate
+    start, the longest match of the anchored DFA (``table`` (256, S) int32,
+    indexed by the raw byte), skipping starts inside an earlier span.
+    Returns an (n, 2) int64 array of (start, end)."""
+    lib = library()
+    _, s = table.shape
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    accept8 = np.ascontiguousarray(accept, dtype=np.uint8)
+    eof8 = np.ascontiguousarray(accept_eof, dtype=np.uint8)
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    cap = max(16, len(starts))  # at most one span per start
+    while True:
+        out = np.empty((cap, 2), dtype=np.int64)
+        n = lib.anchored_spans(
+            _ptr(table, ctypes.c_int32), _ptr(accept8, ctypes.c_uint8),
+            _ptr(eof8, ctypes.c_uint8), int(start_state), int(dead), s,
+            _ptr(stream, ctypes.c_uint8), len(stream),
+            _ptr(starts, ctypes.c_int64), len(starts),
+            _ptr(out, ctypes.c_int64), cap,
+        )
+        if n >= 0:
+            return out[:n]
+        cap *= 2

@@ -34,6 +34,7 @@ class DfaScanResult(NamedTuple):
     counts: torch.Tensor             # (S,) int32 per-state match counts
     final_state: torch.Tensor        # () int32 state after the full stream
     match_mask: torch.Tensor         # (L,) bool: accept fired before byte i
+    states: torch.Tensor | None = None  # (L,) int32: state before byte i
 
 
 def compose(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -61,8 +62,10 @@ def dfa_scan_serial(tables: DfaTables, stream, start: int = 0) -> DfaScanResult:
     accept = tables.accept.cpu().numpy()
     counts = np.zeros(tables.num_states, dtype=np.int32)
     mask = np.zeros(len(data), dtype=bool)
+    states = np.empty(len(data), dtype=np.int32)
     s = int(start)
     for i, byte in enumerate(data.tolist()):
+        states[i] = s
         if accept[s]:
             mask[i] = True
             counts[s] += 1
@@ -72,6 +75,7 @@ def dfa_scan_serial(tables: DfaTables, stream, start: int = 0) -> DfaScanResult:
         counts=torch.as_tensor(counts, device=dev),
         final_state=torch.tensor(s, dtype=torch.int32, device=dev),
         match_mask=torch.as_tensor(mask, device=dev),
+        states=torch.as_tensor(states, device=dev),
     )
 
 
@@ -140,4 +144,5 @@ def dfa_scan_blocked(
         counts=counts.to(torch.int32),
         final_state=final_state,
         match_mask=is_match,
+        states=visited,
     )

@@ -187,9 +187,16 @@ def test_unported_backends_raise(backend):
 
 
 def test_unported_surface_raises():
+    """Patterns with assertions, lazy quantifiers or backreferences route to
+    the host matchers, as in JAX; what raises there is the device-throughput
+    surface, which those patterns cannot have."""
     for pattern in (r"\bfoo\b", r"a+?b", r"(a)\1"):
-        with pytest.raises(NotImplementedError, match="host regex matcher"):
-            tapi.compile_regex(pattern, device="cpu")
+        tm = tapi.compile_regex(pattern, device="cpu")
+        assert type(tm).__name__ == type(japi.compile_regex(pattern)).__name__
+        with pytest.raises(NotImplementedError, match="streaming DFA engines"):
+            tm.scan(b"foo")
+        assert tm.finditer(b"a foo aab aa") == \
+            japi.compile_regex(pattern).finditer(b"a foo aab aa")
 
 
 def chip_smoke_imports():
@@ -238,6 +245,15 @@ def test_port_imports_no_jax():
         "for info in pkgutil.walk_packages(regex_fpga_tpu_torch.__path__,\n"
         "                                  'regex_fpga_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
+        "import regex_fpga_tpu_torch.re_compat as rc\n"
+        "import regex_fpga_tpu_torch.models.captures\n"
+        "import regex_fpga_tpu_torch.models.backtrack\n"
+        "assert rc.findall(rb'(\\w+)=(\\d+)', b'a=1 bb=22', device='cpu') == "
+        "[(b'a', b'1'), (b'bb', b'22')]\n"
+        "assert rc.search(rb'(\\w)\\1', b'abba', device='cpu').span() == (1, 3)\n"
+        "assert rc.search(rb'\\bb\\w+', b'abba bob', device='cpu').span() == (5, 8)\n"
+        "lits = regex_fpga_tpu_torch.api.compile_literals([b'ab', b'b'], device='cpu')\n"
+        "assert lits.finditer(b'abab') == [(0, 2, 0), (1, 2, 1), (2, 4, 0), (3, 4, 1)]\n"
         "m = regex_fpga_tpu_torch.api.compile_tokenizer(device='cpu')\n"
         "assert m.count(b'hello world') == m.scan(b'hello world').total\n"
         "from regex_fpga_tpu_torch.models import regexes_to_csr\n"

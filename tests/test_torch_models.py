@@ -13,11 +13,14 @@ import torch
 
 from regex_fpga_tpu.models import coe, csr, export_csr, l7_corpus, lazy_dfa
 from regex_fpga_tpu.models import literals, oracle, regex, snort, snort_corpus
-from regex_fpga_tpu.models import tokenizer_dfa
+from regex_fpga_tpu.models import backtrack, captures, tokenizer_dfa
 from regex_fpga_tpu.utils import config as jconfig
 from regex_fpga_tpu.utils import metrics as jmetrics
 from regex_fpga_tpu_torch import api as tapi
 from regex_fpga_tpu_torch import models as tm
+from regex_fpga_tpu_torch import re_compat
+from regex_fpga_tpu_torch.models import backtrack as tbacktrack
+from regex_fpga_tpu_torch.models import captures as tcaptures
 from regex_fpga_tpu_torch.ops import lazy_scan
 from regex_fpga_tpu_torch.utils import config as tconfig
 from regex_fpga_tpu_torch.utils import metrics as tmetrics
@@ -163,6 +166,65 @@ def test_lazy_dfa_host_scan_matches_jax(n):
         np.testing.assert_array_equal(g, w)
 
 
+def seeded_subject(seed: int, n: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    return bytes(rng.choice(list(b"ab ab1_x.\n=c"), size=n).astype(np.uint8))
+
+
+@pytest.mark.parametrize("pattern", [
+    r"(\w+)=(\d+)", r"((a+)(b+))c?", r"(a|ab)(c|bcd)?", r"\b(\w)(\w*)\b",
+    r"(?m)^(a+)$", r"(a+?)(b*)", r"(?P<x>[ab])+(?P<y>1)?", r"x*",
+])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_capture_program_matches_jax(pattern, seed):
+    """The port's copy of models/captures.py: group spans and lastindex
+    inside given spans, longest and first ends, and both finditer walks."""
+    got = tcaptures.CaptureProgram(pattern)
+    want = captures.CaptureProgram(pattern)
+    assert (got.num_groups, got.group_names) == (want.num_groups,
+                                                 want.group_names)
+    data = seeded_subject(seed, 400)
+    for s0 in range(0, len(data), 7):
+        assert got.longest_end_at(data, s0) == want.longest_end_at(data, s0)
+        assert got.first_end_at(data, s0) == want.first_end_at(data, s0)
+        end = want.longest_end_at(data, s0)
+        if end >= 0:
+            assert got.extract(data, s0, end) == want.extract(data, s0, end)
+    for start_at in (0, 5):
+        assert got.finditer_spans(data, None, start_at=start_at) == \
+            want.finditer_spans(data, None, start_at=start_at)
+        assert got.finditer_spans_first(data, 3, start_at=start_at) == \
+            want.finditer_spans_first(data, 3, start_at=start_at)
+
+
+@pytest.mark.parametrize("pattern", [
+    r"(\w)\1", r"(?<=a)b+", r"a(?=b)", r"(?!x)(\w)", r"(a)?(?(1)b|c)",
+    r"(?P<q>[ab])\w*?(?P=q)", r"(a|ab)(c|bcd)?", r"^(a+)\1",
+])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backtrack_program_matches_jax(pattern, seed):
+    """The port's copy of models/backtrack.py: anchored matches with groups
+    and lastindex, searches, the empty-match iteration rule, and the step
+    budget."""
+    got = tbacktrack.BacktrackProgram(pattern)
+    want = backtrack.BacktrackProgram(pattern)
+    assert (got.num_groups, got.group_names) == (want.num_groups,
+                                                 want.group_names)
+    data = seeded_subject(seed, 300)
+    for s0 in range(0, len(data), 11):
+        for kw in ({}, {"full": True}, {"ban_empty": True}):
+            assert got.match_at(data, s0, **kw) == want.match_at(data, s0, **kw)
+        assert got.search_spans(data, s0) == want.search_spans(data, s0)
+    assert got.finditer_spans(data) == want.finditer_spans(data)
+    hostile = b"a" * 30
+    for prog, err in ((tbacktrack.BacktrackProgram(r"(a+)+b(?=x)", 500),
+                       tbacktrack.BacktrackLimitExceeded),
+                      (backtrack.BacktrackProgram(r"(a+)+b(?=x)", 500),
+                       backtrack.BacktrackLimitExceeded)):
+        with pytest.raises(err):
+            prog.search_spans(hostile)
+
+
 def test_engine_config_and_metrics_match_jax():
     assert dataclasses.asdict(tconfig.EngineConfig()) == \
         dataclasses.asdict(jconfig.EngineConfig())
@@ -185,6 +247,13 @@ def test_entry_points_default_to_the_card(no_card):
     calls = [
         lambda: tapi.compile_tokenizer(),
         lambda: tapi.compile_regex(PATTERNS[0]),
+        lambda: tapi.compile_regex(r"\bfoo\b"),
+        lambda: tapi.compile_regex(r"(a)\1"),
+        lambda: tapi.compile_literals([b"ab"]),
+        lambda: tapi.compile_regex_set([b"ab", b"^c"]),
+        lambda: tapi.compile_regex_set_prefiltered([b"abc", b"d+"]),
+        lambda: re_compat.compile(rb"x\d"),
+        lambda: re_compat.findall(rb"y\d", b"y1"),
         lambda: tapi.compile_ruleset(aut),
         lambda: tapi.compile_ruleset(aut, strategy="active-set"),
         lambda: lazy_scan.lazy_nfa_scan(tm.LazyDfa(aut), np.zeros(10, np.uint8)),
