@@ -50,10 +50,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the CPU path and to Python re) and re_compat (count over 64 MiB on the
    k-gram engine, held to the native host walk; findall over 1 MiB, held to
    re.findall); the launch counts show that K1, K2, K3 and K4 ran;
-6. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
+6. the IDS front door, each call timed as the median of IDS_REPEATS runs:
+   compile_snort over the 3,000-rule community-scale corpus and 4,000
+   payloads of its traffic (the route of K2 for each prefilter automaton,
+   GB/s, the split between stage 1 on the card and the host verify, the
+   candidate and alert counts; every planted sid alerts, stage 1 equals a
+   native walk of every payload, and alerts, candidates and the enforcement
+   report equal the CPU path), then K2 at that shape against its plain
+   version; compile_l7 over the 110 l7-corpus .pat files under
+   "lazy-device" (8 MiB), "active-set" (8 flows of 1 MiB) and prefiltered
+   (8 flows of 64 KiB), each held to compile_regex_set's per-rule counts;
+   and the CLI (python -m regex_fpga_tpu_torch) as subprocesses: grep -c
+   over 64 MiB, grep, acgrep, rgrep, snort, snort --coverage, compile-rules
+   --scan, scan, gen-corpus and presplit, each held to the in-process API
+   and to the JAX CLI's exit code, with its wall time;
+7. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
 
 ``--out DIR`` also writes nvcc's report and the results there.
-``--profile`` adds, after phase 5, one torch.profiler run of each API call
+``--profile`` adds, after phase 6, one torch.profiler run of each API call
 that uses the card (device time in copies and in kernels, and the idle share
 of the call's wall time) and the host-to-device copy of 64 MiB from pageable
 and from pinned memory. The script imports torch, numpy and the port, and nothing
@@ -63,8 +77,10 @@ of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -73,6 +89,7 @@ import numpy as np
 import torch
 
 MIB = 1 << 20
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 REPEATS = 5  # timed runs per API call in phases 3-5; the median is reported
 
@@ -857,21 +874,12 @@ def native_walk(tables, data: np.ndarray, start: int):
     """Per-state accept-visit counts and the final state of a serial host
     walk (the port's native build of ``dfa_scan``), an independent reference
     for the device scans."""
-    import ctypes
-
     from regex_fpga_tpu_torch import native
 
-    table = np.ascontiguousarray(tables.table.cpu().numpy(), dtype=np.int32)
-    class_of = np.ascontiguousarray(tables.class_of.cpu().numpy(), dtype=np.int32)
-    accept = np.ascontiguousarray(tables.accept.cpu().numpy(), dtype=np.uint8)
-    data = np.ascontiguousarray(data, dtype=np.uint8)
-    counts = np.zeros(table.shape[1], dtype=np.int64)
-    ptr = lambda a, t: a.ctypes.data_as(ctypes.POINTER(t))  # noqa: E731
-    final = native.library().dfa_scan(
-        ptr(table, ctypes.c_int32), ptr(class_of, ctypes.c_int32),
-        ptr(accept, ctypes.c_uint8), table.shape[1], ptr(data, ctypes.c_uint8),
-        len(data), int(start), ptr(counts, ctypes.c_int64), None)
-    return counts, int(final)
+    counts, _, final = native.dfa_scan(
+        tables.table.cpu().numpy(), tables.class_of.cpu().numpy(),
+        tables.accept.cpu().numpy(), data, start, want_mask=False)
+    return counts, final
 
 
 def literal_occurrences(patterns, data: bytes) -> list:
@@ -886,6 +894,23 @@ def literal_occurrences(patterns, data: bytes) -> list:
     return out
 
 
+def prefilter_flows(n: int) -> list:
+    """``n`` flows of 64 KiB in 8 groups, each holding the planted payloads
+    of other l7 rules: their literal sets differ."""
+    from regex_fpga_tpu_torch.models import gen_l7_patterns, gen_l7_traffic
+
+    l7_pats = gen_l7_patterns()
+    payloads, planted = gen_l7_traffic()
+    noise = [payloads[i] for i in range(len(payloads)) if i not in planted]
+    flows = []
+    for k in range(n):
+        own = [l7_pats[r][3] for r in range((k % 8) * 13, (k % 8) * 13 + 13)]
+        pick = [own[j % 13] if j % 3 == 0 else noise[(j * 7 + k) % len(noise)]
+                for j in range(64)]
+        flows.append(tiled(b"".join(pick), MIB // 16))
+    return flows
+
+
 def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
     """Span extraction and the matcher surface through the port's API at the
     sizes a user scans (64 MiB calls at the JAX defaults): regex spans,
@@ -895,7 +920,7 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
     import re
 
     from regex_fpga_tpu_torch import api, native, re_compat
-    from regex_fpga_tpu_torch.models import gen_l7_patterns, gen_l7_traffic
+    from regex_fpga_tpu_torch.models import gen_l7_patterns
     from regex_fpga_tpu_torch.ops.tables import host_to_device
 
     rng = np.random.default_rng(SEED + 5)
@@ -931,16 +956,7 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
           and not all(p.startswith("^") for p in rules), "a mixed rule set")
     l7_flows = np.stack([l7_bytes[o:o + MIB]
                          for o in rng.integers(0, 63 * MIB, size=64).tolist()])
-    # 64 flows of 64 KiB in 8 groups, each holding the planted payloads of
-    # other rules: their literal sets differ
-    payloads, planted = gen_l7_traffic()
-    noise = [payloads[i] for i in range(len(payloads)) if i not in planted]
-    pre_flows = []
-    for k in range(64):
-        own = [l7_pats[r][3] for r in range((k % 8) * 13, (k % 8) * 13 + 13)]
-        pick = [own[j % 13] if j % 3 == 0 else noise[(j * 7 + k) % len(noise)]
-                for j in range(64)]
-        pre_flows.append(tiled(b"".join(pick), 64 * 1024))
+    pre_flows = prefilter_flows(64)
     rule_dev = api.compile_regex_set(rules, cfg, "lazy-device", device=dev)
     rule_act = api.compile_regex_set(rules, cfg, "active-set", device=dev)
     rule_host = api.compile_regex_set(rules, cfg, "lazy", device=dev)
@@ -974,7 +990,7 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
         "rule_act": (f"rule set ({len(rules)} l7 rules) active-set 64 flows "
                      f"x 1 MiB", lambda: rule_act.scan(l7_flows), l7_flows.size),
         "pre": ("prefiltered rule set active-set 64 flows x 64 KiB",
-                lambda: pre.scan(pre_flows), 64 * 64 * 1024),
+                lambda: pre.scan(pre_flows), 64 * MIB // 16),
         ("host", "boundary"): ("host matcher \\b finditer 4 MiB",
                                lambda: host["boundary"].finditer(host4),
                                len(host4)),
@@ -1108,6 +1124,334 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
     return launches, device_calls
 
 
+# ---------------------------------------------------------------- phase 6
+
+IDS_PATH = ("dfa_chain", "dfa_chain_counts", "nfa_active_scan")
+IDS_REPEATS = 3  # timed runs per phase-6 call: the Snort call takes seconds
+
+
+@contextlib.contextmanager
+def recorded_k2():
+    """Keeps the arguments of every K2 launch that the fast DFA engines make
+    inside the block, so that the kernel can be held to its plain version
+    at the shape the main path gave it."""
+    from regex_fpga_tpu_torch.ops import dfa_fast
+
+    real, calls = dfa_fast.dfa_chain_counts, []
+
+    def hook(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    dfa_fast.dfa_chain_counts = hook
+    try:
+        yield calls
+    finally:
+        dfa_fast.dfa_chain_counts = real
+
+
+def alert_rows(report) -> list:
+    return [[(a.rule_index, a.sid, a.msg, a.pcre_checked) for a in alerts]
+            for alerts in report.alerts]
+
+
+def run_cli(args) -> tuple[int, bytes, bytes, float]:
+    """``python -m regex_fpga_tpu_torch ARGS`` from the repository root:
+    (exit code, stdout, stderr, wall seconds, the import and the kernels'
+    load included)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "regex_fpga_tpu_torch", *args],
+                         capture_output=True, timeout=300, cwd=ROOT)
+    return out.returncode, out.stdout, out.stderr, time.perf_counter() - t0
+
+
+def phase_ids(dev, snort_bytes, l7_bytes, kernel_times):
+    """The IDS front door at full size: compile_snort over the 3,000-rule
+    community-scale corpus and 4,000 payloads of its traffic (stage 1 on the
+    card, the verify on the host), compile_l7 over a directory of the 110
+    l7-corpus protocols under "lazy-device", "active-set" and prefiltered,
+    and the CLI as subprocesses. Each call is timed as the median of
+    IDS_REPEATS runs after a warm-up and held to a reference. Adds K2's time
+    at the Snort prefilter shape to ``kernel_times``. Returns the kernel
+    launch counts and the device calls for the profile."""
+    from regex_fpga_tpu_torch import api, native
+    from regex_fpga_tpu_torch.models import (gen_community_rules,
+                                             gen_l7_patterns, gen_traffic,
+                                             write_pat_dir)
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "l7"))
+    t0 = time.perf_counter()
+    rules_text = gen_community_rules()
+    ids = api.compile_snort(rules_text, device=dev)
+    payloads, planted = gen_traffic(n_payloads=4000)
+    streams = [np.frombuffer(p, np.uint8) for p in payloads]
+    lows = [ids._lower_lut[s_] for s_ in streams]
+    n_bytes = sum(map(len, payloads))
+    # the l7 corpus as .pat files, and phase 5's rule set over the same
+    # patterns (the l7 traffic is phase 5's, cut: 8 MiB, 8 flows of 1 MiB,
+    # 8 flows of 64 KiB)
+    write_pat_dir(os.path.join(work, "l7"))
+    l7 = {"lazy-device": api.compile_l7(os.path.join(work, "l7"),
+                                        strategy="lazy-device", device=dev),
+          "active-set": api.compile_l7(os.path.join(work, "l7"),
+                                       strategy="active-set", device=dev),
+          "prefiltered": api.compile_l7(os.path.join(work, "l7"),
+                                        strategy="active-set", prefilter=True,
+                                        device=dev)}
+    names = [name for name, *_ in gen_l7_patterns()]
+    rules = [("(?i)" + p) if icase else p for _, p, icase, _ in gen_l7_patterns()]
+    ref = api.compile_regex_set(rules, strategy="lazy", device=dev)
+    l7_cut, l7_flows = l7_bytes[:8 * MIB], l7_bytes[:8 * MIB].reshape(8, MIB)
+    pre_flows = prefilter_flows(8)
+    print(f"ids: Snort corpus of {ids.num_rules} rules compiled on the card, "
+          f"{len(payloads)} payloads of {n_bytes} bytes ({len(planted)} with a "
+          f"planted attack); l7: {len(l7['lazy-device'].rule_names)} .pat files "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(len(l7["lazy-device"].rule_names) == len(names) == 110
+          and sorted(l7["lazy-device"].rule_names) == sorted(names),
+          "compile_l7 reads the 110 protocols")
+
+    # stage 1's K2 shapes: each automaton with the stall class, over the
+    # ragged batch (lanes = payloads x blocks, a histogram row per payload)
+    k2_args = {}
+    for name, m, data in (("exact", ids._exact, streams),
+                          ("case-folded", ids._fold, lows)):
+        with recorded_k2() as calls:
+            m.scan_patterns(data)
+        check(len(calls) >= 1, f"{name}: stage 1 launched K2")
+        k2_args[name] = calls[-1]
+        (table, _, cls_seq, _), kw = calls[-1]
+        route = hd.dfa_chain_route("counts", table.shape[0], table.shape[1],
+                                   cls_seq.shape[1], kw["num_streams"],
+                                   cls_seq.dtype)
+        print(f"ids: Snort prefilter {name}: Aho-Corasick S={m.num_states} over "
+              f"{m.num_patterns} literals; K2 {len(calls)} pass(es) of table "
+              f"({table.shape[0]}, {table.shape[1]}) stored {route['table']}, "
+              f"accept bit {'in the entry' if route['accept_folded'] else 'loaded'}, "
+              f"histogram {route['hist']} ({kw['num_streams']} rows), "
+              f"{cls_seq.shape[1]} lanes x {cls_seq.shape[0]} steps "
+              f"{str(cls_seq.dtype)[6:]}, {route['lanes_per_cta']} lanes per "
+              f"CTA", flush=True)
+
+    calls = {  # key: (label, zero-argument function, bytes)
+        "snort": (f"compile_snort ({ids.num_rules} rules) scan {len(payloads)} "
+                  f"payloads", lambda: ids.scan(payloads), n_bytes),
+        "l7_dev": ("compile_l7 lazy-device 8 MiB",
+                   lambda: l7["lazy-device"].scan(l7_cut), l7_cut.size),
+        "l7_act": ("compile_l7 active-set 8 flows x 1 MiB",
+                   lambda: l7["active-set"].scan(l7_flows), l7_flows.size),
+        "l7_pre": ("compile_l7 prefiltered active-set 8 flows x 64 KiB",
+                   lambda: l7["prefiltered"].scan(pre_flows), 8 * MIB // 16),
+    }
+    reset_launches()
+    got, device_calls, medians = {}, [], {}
+    for key, (label, fn, nbytes) in calls.items():
+        before = launch_counters()
+        got[key] = fn()
+        ms = wall_ms(fn, IDS_REPEATS)
+        med = medians[key] = float(np.median(ms))
+        after = launch_counters()
+        used = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        print(f"ids: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
+              f"{IDS_REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max "
+              f"{max(ms):.2f}), launches {json.dumps(used)}", flush=True)
+        device_calls.append((label, fn, nbytes))
+    launches = launch_counters()
+    print(f"ids: launches {json.dumps(launches)}", flush=True)
+    for name in IDS_PATH:
+        check(launches[name] > 0, f"{name} launched on the IDS path")
+
+    # where the Snort call's time goes: stage 1 (uploads, K2, readback) on
+    # the card, the rest (URI carve, gate, verify, pcre) on the host
+    stage1 = float(np.median(wall_ms(lambda: ids._prefilter_counts(streams),
+                                     IDS_REPEATS)))
+    rep = got["snort"]
+    n_cand = sum(map(len, rep.prefilter_candidates))
+    n_alerts = sum(map(len, rep.alerts))
+    print(f"ids: Snort split: stage 1 (uploads, K2, readback) {stage1:.2f} "
+          f"ms, host stage {medians['snort'] - stage1:.2f} ms (the call's "
+          f"median less stage 1's, medians of {IDS_REPEATS}); {n_cand} prefilter "
+          f"candidates ({n_cand / len(payloads):.1f} rules a payload), "
+          f"{n_alerts} alerts", flush=True)
+
+    # references
+    t0 = time.perf_counter()
+    for i, sid in planted.items():
+        check(sid in rep.sids(i), f"payload {i}: planted sid {sid} alerts")
+    ecs, fcs = ids._prefilter_counts(streams)
+    for name, m, data, pc in (("exact", ids._exact, streams, ecs),
+                              ("case-folded", ids._fold, lows, fcs)):
+        t = [x.cpu().numpy() for x in (m.tables.table, m.tables.class_of,
+                                       m.tables.accept)]
+        counts = np.zeros((len(data), m.num_states), np.int64)
+        for i, s_ in enumerate(data):
+            counts[i], _, final = native.dfa_scan(*t, s_, m.start,
+                                                  want_mask=False)
+            if len(s_) and m._accept_eof[final]:
+                counts[i, final] += 1
+        check(np.array_equal(pc, m.ac.pattern_counts(counts)),
+              f"stage 1 {name}: per-payload counts equal the native walk's")
+    cpu = api.compile_snort(rules_text, device="cpu")
+    want = cpu.scan(payloads)
+    check(alert_rows(rep) == alert_rows(want), "Snort alerts equal the CPU path")
+    check(rep.prefilter_candidates == want.prefilter_candidates,
+          "Snort candidates equal the CPU path")
+    check(ids.enforcement_report() == cpu.enforcement_report(),
+          "Snort enforcement report equals the CPU path")
+    print(f"ids: Snort: every planted sid alerts; stage 1 equals a native walk "
+          f"of every payload; alerts, candidates and the enforcement report "
+          f"equal the CPU path ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    for key, strategy, data in (("l7_dev", "lazy-device", l7_cut),
+                                ("l7_act", "active-set", l7_flows),
+                                ("l7_pre", "prefiltered", pre_flows)):
+        cols = [names.index(n) for n in l7[strategy].rule_names]
+        want = ref.scan(data).rule_counts[:, cols]
+        check(np.array_equal(got[key].rule_counts, want),
+              f"{calls[key][0]}: per-rule counts equal compile_regex_set's")
+        check(int(want.sum()) > 0, f"{calls[key][0]}: rules matched")
+    print(f"ids: compile_l7 under lazy-device, active-set and prefiltered "
+          f"equals compile_regex_set's lazy host walk, rule by rule "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # K2 at the Snort prefilter shape, against its plain version
+    snort_k2 = {}
+    for name, (args, kw) in k2_args.items():
+        out = hd.dfa_chain_counts(*args, **kw)
+        err = max_abs_err(out, hd.dfa_chain_counts_plain(*args, **kw))
+        check(err == 0, f"K2 at the Snort {name} shape differs by {err}")
+        ms = event_ms(lambda: hd.dfa_chain_counts(*args, **kw), 20)
+        _, plain_ms = one_run_ms(lambda: hd.dfa_chain_counts_plain(*args, **kw))
+        table, accept, cls_seq, entries = args
+        bound = bound_ms((cls_seq, table, accept, entries), out)
+        snort_k2[name] = {"shape": f"table ({table.shape[0]}, {table.shape[1]}), "
+                                   f"{cls_seq.shape[1]} lanes x {cls_seq.shape[0]} "
+                                   f"steps, {kw['num_streams']} histogram rows",
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+        print(f"time: dfa_chain_counts[Snort prefilter {name}, "
+              f"{snort_k2[name]['shape']}] {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+              f"bound {bound:.4f} ms, bit-exact against plain (tolerance 0)",
+              flush=True)
+    kernel_times["dfa_chain_counts"]["snort_prefilter"] = snort_k2
+
+    check_cli(dev, work, ids, rules_text, payloads, snort_bytes, l7_bytes)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, device_calls
+
+
+def check_cli(dev, work, ids, rules_text, payloads, snort_bytes, l7_bytes):
+    """The CLI as subprocesses, each held to the in-process API on the same
+    files and to the JAX CLI's exit code for that input (0: something
+    found; 1: nothing), with its wall time."""
+    from regex_fpga_tpu_torch import api
+    from regex_fpga_tpu_torch.models import gen_l7_patterns
+
+    f = {k: os.path.join(work, v) for k, v in (
+        ("big", "snort64.bin"), ("small", "snort1.bin"), ("l7", "l7.bin"),
+        ("rules", "community.rules"),
+        ("l7_rules", "l7_rules.txt"), ("coe", "l7.coe"), ("text", "text.txt"),
+        ("gen", "gen.rules"))}
+    snort_bytes.tofile(f["big"])
+    snort_bytes[:MIB].tofile(f["small"])
+    l7_bytes[:MIB].tofile(f["l7"])
+    with open(f["rules"], "w") as fh:
+        fh.write(rules_text)
+    # the first 40 payloads (4 with a planted attack), a file each: the
+    # CLI scans each file as one stream
+    traffic = [os.path.join(work, f"payload{i:02d}.bin") for i in range(40)]
+    for path, p in zip(traffic, payloads):
+        with open(path, "wb") as fh:
+            fh.write(p)
+    unanchored = [(("(?i)" + p) if icase else p).encode("latin1")
+                  for _, p, icase, _ in gen_l7_patterns() if not p.startswith("^")]
+    with open(f["l7_rules"], "wb") as fh:
+        fh.write(b"# the unanchored l7-corpus patterns\n" + b"\n".join(unanchored))
+    text = tiled(FRAG, MIB)
+    text.tofile(f["text"])
+    small = snort_bytes[:MIB]
+
+    def lines(rows) -> bytes:
+        return "".join(f"{r}\n" for r in rows).encode("latin1")
+
+    def status(found) -> int:
+        return 0 if found else 1
+
+    count_pat = r"[0-9]+\.[0-9]+"
+    n = api.compile_regex(count_pat, device=dev).count([snort_bytes])
+    ends = api.compile_regex(r"Host: [a-z0-9.-]+", device=dev).findall_ends(small)
+    lits = [b"GET ", b"Host: ", b"cmd.exe", b"zzzz"]
+    per_lit = api.compile_literals(lits, device=dev).scan_patterns([small]) \
+        .pattern_counts[0]
+    pats = [rb"GET /[a-z]+", rb"Host: [a-z]+", rb"^GET", rb"zzzz[0-9]"]
+    per_rule = api.compile_regex_set_prefiltered(pats, device=dev).scan([small]) \
+        .rule_counts[0]
+    snort_out = [
+        f"{path}: sid={a.sid if a.sid is not None else '-'} {a.msg}"
+        + ("" if a.pcre_checked else
+           " [content-only]" if ids.rules[a.rule_index].pcre else "")
+        for path, p in zip(traffic, payloads) for a in ids.scan([p]).alerts[0]]
+    rs = api.compile_regex_set(unanchored, device=dev)
+    rs_counts = rs.scan([l7_bytes[:MIB]]).rule_counts[0]
+    tok = api.compile_tokenizer(device=dev)
+    cli = [  # name, arguments, expected stdout (or None), expected exit code
+        ("grep -c 64 MiB", ["grep", "-c", count_pat, f["big"]],
+         lines([f"{f['big']}:{n}"]), status(n)),
+        ("grep 1 MiB", ["grep", r"Host: [a-z0-9.-]+", f["small"]],
+         lines([f"{f['small']}:{e}" for e in ends.tolist()]), status(len(ends))),
+        ("acgrep 1 MiB", ["acgrep", *[a for lit in lits for a in ("-e", lit.decode())],
+                          f["small"]],
+         lines([f"{f['small']}:{lits[i].decode()}:{c}"
+                for i, c in enumerate(per_lit.tolist()) if c]),
+         status(per_lit.sum())),
+        ("rgrep 1 MiB", ["rgrep", *[a for p in pats for a in ("-e", p.decode())],
+                         f["small"]],
+         lines([f"{f['small']}:{pats[i].decode()}:{c}"
+                for i, c in enumerate(per_rule.tolist()) if c]),
+         status(per_rule.sum())),
+        ("snort 40 payloads", ["snort", f["rules"], *traffic], lines(snort_out),
+         status(snort_out)),
+        ("snort --coverage", ["snort", f["rules"], "--coverage"],
+         lines([json.dumps(r) for r in ids.enforcement_report()["rules"]]), 0),
+        ("compile-rules --scan", ["compile-rules", f["l7_rules"], "-o", f["coe"],
+                                  "--scan", f["l7"]],
+         lines([f"{len(unanchored)} rules -> {rs.automaton.num_states} states, "
+                f"{len(rs.automaton.trans_char)} transitions -> {f['coe']}"]
+               + [f"rule {i} ({p.decode('latin1')}): {int(c)} matches"
+                  for i, (p, c) in enumerate(zip(unanchored, rs_counts))]), 0),
+        ("scan", ["scan", "--coe", f["coe"], f["l7"]], None, 0),
+        ("gen-corpus", ["gen-corpus", "snort", f["gen"]], b"", 0),
+        ("presplit 1 MiB", ["presplit", f["text"]],
+         b"".join(p + b"\n" for p in tok.pieces(text.tobytes())), 0),
+    ]
+    for name, args, want_out, want_rc in cli:
+        rc, out, err, wall = run_cli(args)
+        check(rc == want_rc, f"cli {name}: exit code {rc}, expected {want_rc}:\n"
+                             f"{err.decode(errors='replace')[-2000:]}")
+        if name == "scan":
+            # the histogram of the .coe that compile-rules wrote, then the
+            # metrics line (its wall-clock fields differ run to run)
+            hist = api.compile_ruleset(f["coe"], device=dev).scan(
+                [l7_bytes[:MIB]])
+            rows = out.decode().splitlines()
+            check(rows[:-1] == [f"# stream 0: {f['l7']}"]
+                  + [f"state {s_}: {c}" for s_, c in sorted(hist.histogram(0).items())],
+                  "cli scan: the histogram equals the API's")
+            check(json.loads(rows[-1])["total"] == hist.total > 0,
+                  "cli scan: the total equals the API's")
+        else:
+            check(out == want_out, f"cli {name}: stdout differs from the API's")
+        if name == "gen-corpus":
+            with open(f["gen"]) as fh:
+                check(fh.read() == rules_text, "cli gen-corpus: the rules file")
+        n_lines = out.count(b"\n")
+        print(f"ids: cli {name}: exit {rc}, {wall:.2f} s wall (import and "
+              f"kernel load included), stdout equals the API ({n_lines} "
+              f"lines)", flush=True)
+
+
 # ------------------------------------------------------------ --profile
 
 
@@ -1177,7 +1521,7 @@ def main(argv=None) -> int:
         return 1
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     dev = torch.device("cuda")
 
     phase_device(args.out)
@@ -1211,10 +1555,11 @@ def main(argv=None) -> int:
     nfa_launches, nfa_calls = phase_nfa_path(dev, snort_aut, snort_bytes,
                                              l7_aut, l7_bytes)
     span_launches, span_calls = phase_spans(dev, snort_bytes, l7_bytes, ac_text)
+    ids_launches, ids_calls = phase_ids(dev, snort_bytes, l7_bytes, kernel_times)
     launches = {k: dfa_launches[k] + nfa_launches[k] + span_launches[k]
-                for k in KERNELS}
+                + ids_launches[k] for k in KERNELS}
     if args.profile:
-        phase_profile(dev, calls + nfa_calls + span_calls, args.out)
+        phase_profile(dev, calls + nfa_calls + span_calls + ids_calls, args.out)
 
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,

@@ -1,8 +1,7 @@
 """Public API of the torch port: DFA matchers, span extraction, the matcher
-surface and the NFA conformance engine.
+surface, the NFA conformance engine and the IDS front door (Snort and l7).
 
-The counterpart of ``regex_fpga_tpu/api.py`` without the Snort and l7
-matchers::
+The counterpart of ``regex_fpga_tpu/api.py``::
 
     m = compile_regex(r"\\d+\\.\\d+", device="cuda")  # fast DFA engine
     report = m.scan(data)                               # per-state counts
@@ -22,6 +21,12 @@ matchers::
     nfa = compile_ruleset("rules.coe", strategy="lazy-device", device="cuda")
     report = nfa.scan([flow_a, flow_b])                 # per-NFA-state counts
 
+    ids = compile_snort("community.rules", device="cuda")
+    alerts = ids.scan([payload_a, payload_b]).alerts    # per-payload alerts
+
+    l7 = compile_l7("l7-protocols/", strategy="lazy-device", device="cuda")
+    per_protocol = l7.scan([flow_a]).rule_counts        # l7.rule_names
+
 A matcher holds its tables on ``device`` and scans every chunk there; the
 chain passes and the active-set scan run on the Hopper kernels for a CUDA
 device and on their plain versions for the CPU. Span extraction runs a
@@ -30,17 +35,21 @@ start) and then the anchored forward walk on the host (native
 ``anchored_spans``). Patterns with ``\\b``/``\\B``, ``(?m)`` anchors or lazy
 quantifiers go to ``HostRegexMatcher`` (a device prefilter, then the Pike VM
 of ``models/captures.py``), and patterns with backreferences, lookaround or
-conditionals to ``HostBacktrackMatcher`` (``models/backtrack.py``). Results
-equal the JAX package's bit for bit.
+conditionals to ``HostBacktrackMatcher`` (``models/backtrack.py``). The
+Snort matcher prefilters every payload of a batch on the device and
+verifies the candidate rules on the host. Results equal the JAX package's
+bit for bit.
 
-Not in this package yet: the engine router and the host DFA walker
-(``scan_backend="auto"`` and ``"host"``), which raise
-``NotImplementedError``, and the Snort and l7 matchers.
+Not in this package yet: the engine router and the host DFA walker.
+``scan_backend="auto"`` runs the device engines (exact: the host walker
+gives the same histograms), and ``"host"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -66,12 +75,24 @@ from .models import (
 )
 from .models.backtrack import BacktrackProgram
 from .models.captures import CaptureProgram
+from .models.http import parse_http_request
+from .models.l7 import load_l7_dir, load_l7_pattern
 from .models.regex import (
     DfaBlowupError,
     RegexError,
     nullable,
     required_literal,
     strip_assertions,
+)
+from .models.snort import (
+    ByteExtract,
+    ByteJump,
+    ByteTest,
+    IsDataAt,
+    SnortContent,
+    load_snort_rules,
+    parse_snort_rules,
+    pcre_to_pattern,
 )
 from .ops.dfa_engine import dfa_scan_blocked, dfa_scan_serial
 from .ops.dfa_fast import dfa_scan_fast, dfa_scan_fast_multi, mask_positions
@@ -115,18 +136,23 @@ __all__ = [
     "RuleSetMatcher",
     "RuleSetReport",
     "ScanReport",
+    "SnortAlert",
+    "SnortMatcher",
+    "SnortReport",
     "TokenizerMatcher",
+    "compile_l7",
     "compile_literals",
     "compile_regex",
     "compile_regex_set",
     "compile_regex_set_prefiltered",
     "compile_ruleset",
+    "compile_snort",
     "compile_tokenizer",
 ]
 
-#: The port's default engine settings: the JAX defaults, with every scan on
-#: the device until the engine router is ported.
-DEFAULT_CONFIG = EngineConfig(scan_backend="device")
+#: The port's default engine settings: the JAX defaults. Until the engine
+#: router is ported, ``scan_backend="auto"`` runs every scan on the device.
+DEFAULT_CONFIG = EngineConfig()
 
 
 @dataclasses.dataclass
@@ -284,6 +310,14 @@ class _FallbackResult(NamedTuple):
     iterations: int = 0
 
 
+#: a ragged batch whose rows average at most this many bytes uploads them as
+#: one host concatenation; longer rows are copied one by one. Measured in
+#: alternating pairs by torch_upload_ab.py on an NVIDIA H100 80GB HBM3
+#: (700 W): over 16 MiB the concatenation won all 12 pairs at 64 KiB a row
+#: and the copies won 11 of 12 at 256 KiB; the crossover lies between
+_CONCAT_ROW_BYTES = 1 << 16
+
+
 class DfaMatcher:
     """High-throughput DFA matcher: the fast chain engine with an exact
     fallback, on ``device``."""
@@ -301,12 +335,14 @@ class DfaMatcher:
 
     def _setup(self, tables: DfaTables, accept_eof, start: int,
                config: EngineConfig, device) -> None:
-        if config.scan_backend != "device":
+        # "auto" runs the device engines until the router is ported: exact,
+        # since the host walker gives the same histograms as the device
+        if config.scan_backend == "host":
             raise NotImplementedError(
-                f"scan_backend={config.scan_backend!r} needs the engine "
-                "router and the host walker, which the torch port does not "
-                "have yet (ROADMAP.md, 'Modules to port', the router item); "
-                "use 'device'"
+                "scan_backend='host' needs the engine router and the host "
+                "DFA walker, which the torch port does not have yet "
+                "(ROADMAP.md, 'Modules still to port', the router item); "
+                "use 'auto' or 'device'"
             )
         self.config = config
         self.device = resolve_device(device)
@@ -675,17 +711,35 @@ class DfaMatcher:
             nb = shrink_blocks(w, self.config.num_blocks,
                                self.config.min_block_bytes, divisible=False)
             w_pad = -(-w // nb) * nb  # round up to a block multiple
-            chunk = torch.full((n, w_pad), stall_id, dtype=dtype,
-                               device=self.device)
             real = np.clip(lens - off, 0, w_pad).astype(np.int64)
             entries = cur.copy()  # pre-chunk states (stall correction)
-            for i, s_ in enumerate(streams):
-                if real[i]:
-                    # the stream slice sits at the chunk's end; the leading
-                    # stalls carry the entry state
-                    chunk[i, w_pad - real[i]:] = self._classes(
-                        s_[off : off + real[i]]
-                    )
+            # each stream slice sits at its row's end and the leading stalls
+            # carry the entry state. The slices go to one device array,
+            # which is mapped and scattered into the rows at once, in row
+            # order: short rows as one host concatenation (a copy per row
+            # would cost more than the memcpy), long ones a copy each
+            rows = [s_[off : off + r] for s_, r in zip(streams, real) if r]
+            total = int(real.sum())
+            if total <= _CONCAT_ROW_BYTES * len(rows):
+                raw = self._upload(np.concatenate(rows))
+            else:
+                raw = torch.empty(total, dtype=torch.uint8,
+                                  device=self.device)
+                at = 0
+                with warnings.catch_warnings():
+                    warnings.filterwarnings("ignore",
+                                            message=".*not writable.*")
+                    for row in rows:
+                        raw[at : at + len(row)].copy_(torch.from_numpy(row))
+                        at += len(row)
+            lead = torch.as_tensor(w_pad - real, device=self.device)
+            real_pos = (torch.arange(w_pad, device=self.device)
+                        >= lead[:, None])
+            chunk = torch.full((n, w_pad), stall_id, dtype=dtype,
+                               device=self.device)
+            chunk.masked_scatter_(
+                real_pos,
+                torch.index_select(self._class_lut, 0, raw.int()).to(dtype))
             res = dfa_scan_fast_multi(
                 self._stall_tables, chunk, num_blocks=nb,
                 starts=torch.as_tensor(cur, device=self.device),
@@ -1999,3 +2053,765 @@ def compile_regex_set_prefiltered(
     """Literal-prefiltered ``compile_regex_set``: the same counts, with the
     streams that cannot match rejected at device rate."""
     return PrefilteredRuleSet(patterns, config, strategy, min_literal, device)
+
+
+# ---------------------------------------------------------------- Snort
+
+
+@dataclasses.dataclass
+class SnortAlert:
+    rule_index: int
+    sid: int | None
+    msg: str
+    pcre_checked: bool  # False = content-verified only (pcre outside subset)
+
+
+@dataclasses.dataclass
+class SnortReport:
+    """Per-stream alert lists + the device-side prefilter counts."""
+
+    alerts: list  # per stream: list[SnortAlert]
+    prefilter_candidates: list  # per stream: list[int] rule indices
+    content_report: "LiteralReport | None"
+
+    def sids(self, stream: int = 0) -> list[int]:
+        return [a.sid for a in self.alerts[stream] if a.sid is not None]
+
+
+#: byte_test comparison operators (Snort: ``&``/``^`` are true when the
+#: bitwise result is non-zero)
+_BYTE_OPS = {
+    "<": lambda v, x: v < x,
+    ">": lambda v, x: v > x,
+    "=": lambda v, x: v == x,
+    "<=": lambda v, x: v <= x,
+    ">=": lambda v, x: v >= x,
+    "&": lambda v, x: (v & x) != 0,
+    "^": lambda v, x: (v ^ x) != 0,
+}
+
+
+def _byte_convert(raw: bytes, pos: int, op) -> tuple[int, int] | None:
+    """Read + convert ``op.count`` bytes at ``pos`` per byte_test/byte_jump
+    conversion rules: binary big/little endian, or ``string`` (ASCII
+    digits in ``op.base``, ``strtoul``-style — leading spaces and an
+    optional sign, stop at the first non-digit; no digits = fail).
+    Returns (value, read_end) or None when the read falls outside the
+    payload."""
+    n = len(raw)
+    if op.string:
+        if pos < 0 or pos >= n:
+            return None
+        end = min(pos + op.count, n)
+        i = pos
+        while i < end and raw[i] in b" \t":
+            i += 1
+        sign = 1
+        if i < end and raw[i] in b"+-":
+            sign = -1 if raw[i] == 0x2D else 1
+            i += 1
+        v, start_digits = 0, i
+        while i < end:
+            try:
+                d = int(chr(raw[i]), op.base)
+            except ValueError:
+                break
+            v = v * op.base + d
+            i += 1
+        if i == start_digits:
+            return None
+        return sign * v, end
+    if pos < 0 or pos + op.count > n:
+        return None
+    return int.from_bytes(raw[pos : pos + op.count], op.endian), pos + op.count
+
+
+def _apply_bitmask(v: int, mask: int) -> int:
+    """AND with ``mask`` then right-shift by its trailing zero count
+    (Snort bitmask semantics)."""
+    v &= mask
+    return v >> ((mask & -mask).bit_length() - 1)
+
+
+#: rule options the pipeline ENFORCES (affect matching and are applied).
+#: ``rawbytes`` is enforced AS A NO-OP: it pins inspection to the raw
+#: (undecoded) payload, which is exactly and only what this stream
+#: scanner inspects.
+_MATCH_ENFORCED_OPTS = frozenset({
+    "content", "nocase", "offset", "depth", "distance", "within", "pcre",
+    "byte_test", "byte_jump", "byte_extract", "isdataat", "rawbytes",
+    # HTTP sticky buffers (conservative verbatim carve, models/http.py);
+    # byte ops chained relative to a buffered content are NOT enforced
+    # (dropped at parse, flagged via the byte-op counts)
+    "http_uri", "http_raw_uri", "http_method", "http_header",
+    "http_raw_header", "http_client_body", "http_cookie",
+    "http_raw_cookie",
+    "dsize",  # payload-size predicate (inclusive bounds, Snort 2.9 rules)
+    "urilen",  # URI-length predicate (normalized by default, ",raw" raw)
+})
+#: options that do not constrain MATCHING on a payload stream (labels,
+#: bookkeeping, performance hints) — a rule carrying only these +
+#: enforced options is fully enforced.  Plain ``fast_pattern`` only
+#: selects which content seeds the engine's own prefilter (ours uses ALL
+#: non-negated contents, a strict superset); the ``fast_pattern:only``
+#: FORM changes matching (MPSE-only, case-insensitive) and is classified
+#: unenforced in ``enforcement_report``.
+_METADATA_OPTS = frozenset({
+    "msg", "sid", "rev", "gid", "classtype", "reference", "metadata",
+    "priority", "service", "rem", "target", "fast_pattern",
+})
+#: session-scope predicates: constrain WHICH stream/direction the rule
+#: applies to (like the header's addresses/ports), not what the payload
+#: must contain — a single-payload matcher can't evaluate them and Snort
+#: wouldn't either without the TCP/session context.  Reported per rule
+#: as ``scope_options`` (visible, not silently ignored) but not counted
+#: against payload-level enforcement.  ``flowbits`` is NOT here: isset/
+#: set gate alerting across packets, so ignoring them would change
+#: match output (they classify as partial).
+_SCOPE_OPTS = frozenset({"flow"})
+
+
+class SnortMatcher:
+    """Snort-rules scanner: device AC prefilter + host per-rule verify.
+
+    Stage 1 runs every rule's content literals through the literal engines
+    on ``device`` (one automaton for case-sensitive contents, one over the
+    case-folded stream for ``nocase`` ones; the whole batch of payloads in
+    one ``scan_patterns`` call each, which is K2 with a histogram row per
+    payload on a card); only rules whose non-negated
+    contents ALL occur — the same multi-pattern prefilter architecture
+    Snort uses — reach stage 2, which checks ordered occurrence WITH the
+    positional modifiers ``offset``/``depth``/``distance``/``within``
+    enforced (backtracking across occurrences), negated-content absence
+    (stream-wide, or window-scoped when positionally constrained),
+    ``byte_test``/``byte_jump`` span arithmetic (binary/string
+    conversion, relative anchoring, bitmask/multiplier/align — the
+    verify-program walk in ``_verify``), and the rule's ``pcre`` via the
+    framework's own DFA compiler (``models/snort.py`` documents the
+    supported subset).  ``enforcement_report()`` classifies every rule as
+    fully enforced vs partially (content/pcre-only) verified. Stage 2,
+    the normalized-URI automata and the pcre check run on the host."""
+
+    def __init__(self, rules, config: EngineConfig = DEFAULT_CONFIG,
+                 device=None):
+        self.rules = list(rules)
+        self.config = config
+        self.device = resolve_device(device)
+        # dedupe content literals across rules, split by case sensitivity;
+        # uri-buffered contents get their OWN automata scanned over the
+        # normalized URI (their decoded form need not occur literally in
+        # the raw stream — "/%61dmin" normalizes to "/admin" — so they
+        # cannot gate the raw-stream prefilter; without any gate every
+        # http_uri rule would reach _verify on every payload)
+        exact: dict[bytes, int] = {}
+        fold: dict[bytes, int] = {}
+        uri_exact: dict[bytes, int] = {}
+        uri_fold: dict[bytes, int] = {}
+        self._rule_contents: list[list[tuple[str, int, bool]]] = []
+        for r in self.rules:
+            entries = []
+            for c in r.contents:
+                if c.negated and (
+                    c.offset is not None or c.depth is not None
+                    or c.distance is not None or c.within is not None
+                    or c.buffer is not None
+                ):
+                    # windowed (or buffer-scoped) negation asserts absence
+                    # only INSIDE its window/buffer — stream-wide presence
+                    # must not prefilter the rule away; _verify alone
+                    # enforces it
+                    continue
+                if c.buffer == "uri":
+                    if c.nocase:
+                        pid = uri_fold.setdefault(c.pattern.lower(),
+                                                  len(uri_fold))
+                        entries.append(("uri_fold", pid, c.negated))
+                    else:
+                        pid = uri_exact.setdefault(c.pattern,
+                                                   len(uri_exact))
+                        entries.append(("uri_exact", pid, c.negated))
+                    continue
+                if c.nocase:
+                    key = c.pattern.lower()
+                    pid = fold.setdefault(key, len(fold))
+                    entries.append(("fold", pid, c.negated))
+                else:
+                    pid = exact.setdefault(c.pattern, len(exact))
+                    entries.append(("exact", pid, c.negated))
+            self._rule_contents.append(entries)
+        self._exact = (compile_literals(list(exact), config, self.device)
+                       if exact else None)
+        self._fold = (compile_literals(list(fold), config, self.device)
+                      if fold else None)
+        # normalized-URI prefilter automata: URIs are tens of bytes, so
+        # these are walked host-side per carved request (models/literals
+        # AC; the walk is O(len(uri)))
+        self._uri_exact = (build_aho_corasick(list(uri_exact))
+                           if uri_exact else None)
+        self._uri_fold = (build_aho_corasick(list(uri_fold))
+                          if uri_fold else None)
+        # vectorized gate arrays: a per-rule Python entry loop costs
+        # n_rules x n_payloads steps; one fancy-indexed compare per
+        # automaton replaces it
+        self._gate: dict[str, tuple] = {}
+        for kind in ("exact", "fold", "uri_exact", "uri_fold"):
+            rows, pids, negs = [], [], []
+            for ri, entries in enumerate(self._rule_contents):
+                for k, pid, neg in entries:
+                    if k == kind:
+                        rows.append(ri)
+                        pids.append(pid)
+                        negs.append(neg)
+            if rows:
+                self._gate[kind] = (np.asarray(rows), np.asarray(pids),
+                                    np.asarray(negs, dtype=bool))
+        self._lower_lut = np.arange(256, dtype=np.uint8)
+        self._lower_lut[ord("A"):ord("Z") + 1] += 32
+        self._pcre_cache: dict[int, tuple | None] = {}
+        self._pcre_by_text: dict[str, tuple | None] = {}
+
+    @property
+    def num_rules(self) -> int:
+        return len(self.rules)
+
+    def export_coe(self, path: str):
+        """Compile this ruleset's content literals into a reference-format
+        ``.coe`` memory image — the "Snort rules → CSR_BlockMem" pipeline
+        whose output the reference SHIPS but whose tooling it never
+        published (``CSR_BlockMem_snort_16.coe`` derives from exactly such
+        a ruleset, SURVEY.md §2.1 #14 / §0).
+
+        Every rule's non-negated content literals (raw and buffered —
+        the buffer/negation/pcre/byte-op constraints are host-verify
+        stages with no RTL analogue) become one merged unanchored CSR
+        NFA with per-literal accept states, loadable by the reference
+        engine (accept = out-degree 0, per-state match counters =
+        per-literal counters).  Returns ``(automaton, owner, literals)``
+        where ``owner[s]`` is the literal index owning state ``s`` (-1
+        for the shared hub)."""
+        special = set(rb"\^$.[]()*+?{}|")
+        literals = sorted({
+            c.pattern for r in self.rules for c in r.contents
+            if not c.negated and c.pattern
+        })
+        if not literals:
+            raise RegexError("ruleset has no non-negated content literals")
+        pats = [
+            bytes(b for ch in lit
+                  for b in ((0x5C, ch) if ch in special else (ch,)))
+            for lit in literals
+        ]
+        aut, owner = regexes_to_csr(pats)
+        write_coe(path, aut.to_words())
+        return aut, owner, literals
+
+    @staticmethod
+    def _ac_presence(ac, data: bytes) -> np.ndarray:
+        """Per-pattern occurrence counts of an AC automaton host-walked
+        over a short derived buffer (normalized URI — tens of bytes, so
+        a Python table walk beats any engine dispatch)."""
+        table, accept = ac.dfa.table, ac.dfa.accept
+        sc = np.zeros(ac.num_states, np.int64)
+        s = 0
+        for b in data:
+            s = int(table[b, s])
+            if accept[s]:
+                sc[s] += 1
+        return ac.pattern_counts(sc)
+
+    def _pcre_tables(self, idx: int):
+        """(table, accept, eof) for rule idx's pcre in scanning mode, or
+        None when absent/outside the subset.  Compiled objects are shared
+        across rules with identical pcre TEXT (community rulesets repeat
+        boilerplate patterns, so compiling per rule is redundant). A pattern
+        that the DFA compiler refuses (``\\b``/``\\B``, or a DFA blowup)
+        goes to the Pike VM; one that neither takes is outside the subset.
+        Rules files come from outside the program, so any exception counts
+        as a refusal, as in the JAX package."""
+        if idx not in self._pcre_cache:
+            r = self.rules[idx]
+            if r.pcre is not None and r.pcre in self._pcre_by_text:
+                self._pcre_cache[idx] = self._pcre_by_text[r.pcre]
+                return self._pcre_cache[idx]
+            out = None
+            if r.pcre is not None:
+                pat = pcre_to_pattern(r.pcre)
+                if pat is not None:
+                    try:
+                        d = compile_pattern(pat.encode(), anchored=False)
+                        out = ("dfa", np.ascontiguousarray(d.table), d.accept,
+                               d.eof_accept, d.start)
+                    except Exception:
+                        # \b/\B (or DFA blowup): host Pike-VM existence check
+                        try:
+                            out = ("host", CaptureProgram(pat.encode()))
+                        except Exception:
+                            out = None
+            self._pcre_cache[idx] = out
+            if r.pcre is not None:
+                self._pcre_by_text[r.pcre] = out
+        return self._pcre_cache[idx]
+
+    def _pcre_hit(self, idx: int, raw: bytes,
+                  memo: dict | None = None) -> bool | None:
+        """True/False = verified; None = pcre absent or outside subset.
+        ``memo`` (per stream) dedupes by pcre TEXT: content-less pcre
+        rules are always prefilter candidates, and community corpora
+        repeat the same pattern across many rules, so unmemoized a batch
+        would run one native scan per rule and payload."""
+        r = self.rules[idx]
+        if r.pcre is None:
+            return None
+        if memo is not None and r.pcre in memo:
+            return memo[r.pcre]
+        t = self._pcre_tables(idx)
+        if t is None:
+            return None
+        res = self._pcre_run(t, raw)
+        if memo is not None:
+            memo[r.pcre] = res
+        return res
+
+    @staticmethod
+    def _pcre_run(t, raw: bytes) -> bool:
+        if t[0] == "host":  # \b/\B patterns: Pike-VM match existence
+            return bool(t[1].finditer_spans(raw, limit=1))
+        _, table, accept, eof, start = t
+        # the native walk (identity byte classes: pcre tables are raw-byte
+        # indexed); a missing g++ raises, as everywhere in the port
+        counts, _, final = native.dfa_scan(
+            table, np.arange(256, dtype=np.int32), accept,
+            np.frombuffer(raw, dtype=np.uint8), start=start, want_mask=False,
+        )
+        return bool(counts.sum() > 0 or accept[final] or eof[final])
+
+    def _verify(self, idx: int, raw: bytes, low: bytes,
+                http_cache: dict | None = None) -> bool:
+        """Ordered-occurrence check over the rule's VERIFY PROGRAM
+        (``SnortRule.verify_ops``: contents + byte_test/byte_jump in rule
+        order) with the positional content modifiers ENFORCED
+        (``models/snort.py``): ``offset``/``depth`` window the
+        search absolutely — anchored to PAYLOAD START, independent of the
+        ordered-walk cursor, depth measured from offset (Snort semantics);
+        ``distance``/``within`` window it relative to the previous content
+        match's end (``within`` bounds the current match's END).  Negated
+        contents assert absence — stream-wide by default, inside their
+        window when positionally constrained.  ``byte_test`` is a
+        zero-width predicate on converted payload bytes (cursor
+        unchanged); ``byte_jump`` converts, scales, aligns, and MOVES the
+        cursor — out-of-payload reads or jump targets fail the rule.
+        Fuzz-validated against a brute-force all-assignments oracle
+        (``tests/test_snort.py::test_verify_fuzz_vs_bruteforce_oracle``).
+
+        The walk BACKTRACKS over occurrences of content ``i`` ONLY when a
+        later op is positioned relative to it (``distance``/``within`` on
+        a content, ``relative`` on a byte op, somewhere after ``i``):
+        there the occurrence choice matters (greedy first-occurrence would
+        wrongly refuse e.g. ``content:"A"; content:"B"; within:3;`` on
+        ``b"A....A..B"``), and the windows bound the retry cost.  When no
+        later op is relative, the earliest occurrence is provably optimal
+        (every later content searches FROM the previous match end, so an
+        earlier end only widens its window) and the walk stays greedy —
+        this also keeps the verify stage LINEAR on attacker-controlled
+        payloads (unbounded backtracking is quadratic on a crafted
+        packet)."""
+        rule = self.rules[idx]
+        contents = rule.verify_ops or rule.contents
+        n = len(raw)
+        dsz = getattr(rule, "dsize", None)
+        if dsz is not None:
+            lo, hi = dsz
+            if (lo is not None and n < lo) or (hi is not None and n > hi):
+                return False
+        http_bufs = None
+        ul = getattr(rule, "urilen", None)
+        if ul is not None or any(
+                isinstance(c, SnortContent) and c.buffer for c in contents):
+            if http_cache is None:
+                http_cache = {}
+            if "bufs" not in http_cache:  # carve once per stream
+                http_cache["bufs"] = parse_http_request(raw)
+            http_bufs = http_cache["bufs"]
+        if ul is not None:
+            # urilen: inclusive URI-length predicate against the
+            # normalized (default) or raw URI; no parseable request ->
+            # no URI -> the rule cannot fire (Snort: buffer absent)
+            if http_bufs is None:
+                return False
+            lo, hi, mode = ul
+            u0, u1 = http_bufs.uri
+            if mode == "norm" and http_bufs.uri_norm is not None:
+                ulen = len(http_bufs.uri_norm)
+            else:
+                ulen = u1 - u0
+            if (lo is not None and ulen < lo) \
+                    or (hi is not None and ulen > hi):
+                return False
+        # later_relative[i]: some op at index >= i anchors to the cursor
+        # (distance/within content, or a relative byte op); queried at
+        # [ci + 1] to ask "does any LATER op depend on where op ci ended?"
+        later_relative = [False] * (len(contents) + 1)
+        for i in range(len(contents) - 1, -1, -1):
+            c = contents[i]
+            rel = (c.relative
+                   if isinstance(c, (ByteTest, ByteJump, ByteExtract,
+                                     IsDataAt))
+                   else (c.distance is not None or c.within is not None))
+            later_relative[i] = later_relative[i + 1] or rel
+
+        _missing = object()  # unresolved byte_extract variable sentinel
+
+        def ok_from(ci: int, prev_end: int, env: dict,
+                    bufpos: dict) -> bool:
+            if ci == len(contents):
+                return True
+            c = contents[ci]
+
+            def rv(x):
+                # int | None pass through; variable name -> bound value
+                return env.get(x, _missing) if isinstance(x, str) else x
+
+            if isinstance(c, ByteTest):
+                off, val = rv(c.offset), rv(c.value)
+                if off is _missing or val is _missing:
+                    return False
+                got = _byte_convert(raw, (prev_end if c.relative else 0)
+                                    + off, c)
+                if got is None:
+                    return False
+                v, _ = got
+                if c.bitmask is not None:
+                    v = _apply_bitmask(v, c.bitmask)
+                res = _BYTE_OPS[c.op](v, val)
+                if c.negate:
+                    res = not res
+                return bool(res) and ok_from(ci + 1, prev_end, env, bufpos)
+            if isinstance(c, ByteExtract):
+                off = rv(c.offset)
+                if off is _missing:
+                    return False
+                got = _byte_convert(raw, (prev_end if c.relative else 0)
+                                    + off, c)
+                if got is None:
+                    return False
+                v, read_end = got
+                # bindings are IMMUTABLE per path: backtracking into an
+                # earlier content re-runs the extract with the new cursor
+                return ok_from(ci + 1, read_end,
+                               {**env, c.name: v * c.multiplier}, bufpos)
+            if isinstance(c, IsDataAt):
+                pos = rv(c.pos)
+                if pos is _missing:
+                    return False
+                base = prev_end if c.relative else 0
+                exists = 0 <= base + pos < n
+                if exists == c.negate:
+                    return False
+                return ok_from(ci + 1, prev_end, env, bufpos)
+            if isinstance(c, ByteJump):
+                off = rv(c.offset)
+                if off is _missing:
+                    return False
+                pos = (prev_end if c.relative else 0) + off
+                if c.count == 0:
+                    v, read_end = 0, pos
+                else:
+                    got = _byte_convert(raw, pos, c)
+                    if got is None:
+                        return False
+                    v, read_end = got
+                if c.bitmask is not None:
+                    v = _apply_bitmask(v, c.bitmask)
+                v *= c.multiplier
+                if c.align:
+                    v = (v + 3) & ~3
+                if c.from_beginning:
+                    target = v
+                elif c.from_end:
+                    target = n + v
+                else:
+                    target = read_end + v
+                target += c.post_offset
+                if target < 0 or target > n:
+                    return False
+                return ok_from(ci + 1, target, env, bufpos)
+            c_off, c_dep = rv(c.offset), rv(c.depth)
+            c_dist, c_win = rv(c.distance), rv(c.within)
+            if _missing in (c_off, c_dep, c_dist, c_win):
+                return False
+            # HTTP buffer carve: a buffered content searches only its
+            # buffer's payload SLICE, with buffer-relative windows and a
+            # per-buffer cursor (Snort per-buffer DOE; models/http.py).
+            # A payload that isn't a parseable HTTP request has no
+            # buffers, so buffered contents fail (Snort: buffer absent).
+            bhay = None  # non-None: buffer-local haystack (normalized URI)
+            if c.buffer is not None:
+                if http_bufs is None:
+                    return False
+                if c.buffer == "uri" and http_bufs.uri_norm is not None:
+                    # http_uri matches the NORMALIZED buffer: percent-decoded + path-compressed bytes,
+                    # buffer-relative coordinates, per-buffer DOE cursor.
+                    # No raw span exists for these matches; the alert
+                    # surface carries rule ids, not spans, so nothing is
+                    # lost.  http_raw_uri stays the verbatim slice.
+                    norm = http_bufs.uri_norm
+                    if c.nocase:
+                        if "uri_norm_low" not in http_cache:
+                            http_cache["uri_norm_low"] = norm.lower()
+                        bhay = http_cache["uri_norm_low"]
+                    else:
+                        bhay = norm
+                    base_off, blen = 0, len(norm)
+                else:
+                    span = getattr(http_bufs, c.buffer)
+                    if span is None:
+                        return False
+                    base_off, buf_end = span
+                    blen = buf_end - base_off
+                cur = bufpos.get(c.buffer, 0)
+            else:
+                base_off, blen, cur = 0, n, prev_end
+            hay = bhay if bhay is not None else (low if c.nocase else raw)
+            needle = c.pattern.lower() if c.nocase else c.pattern
+            relative = c_dist is not None or c_win is not None
+            absolute = (
+                (c_off is not None or c_dep is not None)
+                and not relative
+            )
+            if absolute:
+                # Snort semantics: offset/depth anchor to PAYLOAD (or
+                # buffer) START, independent of the ordered-walk cursor
+                start = c_off or 0
+            elif relative:
+                start = cur + (c_dist or 0)
+                if c_off is not None:  # mixed: both constraints apply
+                    start = max(start, c_off)
+            else:
+                start = cur  # ordered-occurrence walk
+            end_limit = (
+                cur + c_win if c_win is not None else None
+            )
+            if c_dep is not None:
+                dl = (c_off or 0) + c_dep
+                end_limit = dl if end_limit is None else min(end_limit, dl)
+            start = max(start, 0)
+
+            def advance(rel_end: int):
+                if c.buffer is not None:
+                    return ok_from(ci + 1, prev_end, env,
+                                   {**bufpos, c.buffer: rel_end})
+                return ok_from(ci + 1, rel_end, env, bufpos)
+
+            if c.negated:
+                windowed = (relative or c_off is not None
+                            or c_dep is not None)
+                seg_end = (min(end_limit, blen) if end_limit is not None
+                           else blen)
+                frm = start if windowed else 0
+                if hay.find(needle, base_off + frm,
+                            base_off + (seg_end if windowed else blen)
+                            ) != -1:
+                    return False
+                # a negated content matches "nothing": cursor stays put
+                return ok_from(ci + 1, prev_end, env, bufpos)
+            # bound the search by end_limit so find() never scans past the
+            # window: an occurrence must END by end_limit, which is exactly
+            # bytes.find's slice-end semantics.  Without the bound, each
+            # backtracking retry of an earlier content re-scans to payload
+            # end (quadratic again on a crafted b"A"*n + b"BB" packet
+            # against `content:"AA"; content:"BB"; within:4;`)
+            bound = blen if end_limit is None else min(end_limit, blen)
+            at = hay.find(needle, base_off + start, base_off + bound)
+            if not later_relative[ci + 1]:
+                # greedy: earliest occurrence is optimal (see docstring)
+                if at == -1:
+                    return False
+                return advance(at - base_off + len(needle))
+            while at != -1:
+                if advance(at - base_off + len(needle)):
+                    return True
+                at = hay.find(needle, at + 1, base_off + bound)
+            return False
+
+        return ok_from(0, 0, {}, {})
+
+    def enforcement_report(self) -> dict:
+        """Per-rule enforcement coverage: which rules this pipeline fully
+        enforces vs verifies partially (content/pcre only), and why.
+
+        ``status`` per rule: ``"enforced"`` — every match-constraining
+        option is applied (byte ops parsed into the verify program, pcre
+        compiled into the engine subset); ``"partial"`` — some match
+        constraint is not applied (names in ``unenforced_options``,
+        byte ops whose modifiers fell outside the parsed subset in
+        ``byte_ops_unparsed``, or a pcre outside the compiler subset).
+        Metadata options (msg/sid/rev/classtype/reference/...) never
+        affect matching and don't count against a rule."""
+        rows = []
+        for i, r in enumerate(self.rules):
+            scope = sorted({nm for nm, _ in r.options if nm in _SCOPE_OPTS})
+            unenforced = sorted({
+                nm for nm, v in r.options
+                if (nm not in _MATCH_ENFORCED_OPTS
+                    and nm not in _METADATA_OPTS
+                    and nm not in _SCOPE_OPTS)
+                # fast_pattern:only is NOT a pure hint: Snort then skips
+                # the rule-option content check and matches it
+                # case-insensitively via the MPSE — semantics this
+                # pipeline does not reproduce
+                or (nm == "fast_pattern" and v and "only" in v)
+                or (nm == "dsize"
+                    and getattr(r, "dsize", None) is None)
+                or (nm == "urilen"
+                    and getattr(r, "urilen", None) is None)
+            })
+            byte_opt_names = ("byte_test", "byte_jump", "byte_extract",
+                              "isdataat")
+            n_byte_opts = sum(
+                1 for nm, _ in r.options if nm in byte_opt_names
+            )
+            n_byte_ops = sum(
+                1 for o in (r.verify_ops or ())
+                if isinstance(o, (ByteTest, ByteJump, ByteExtract, IsDataAt))
+            )
+            byte_unparsed = n_byte_opts - n_byte_ops
+            dropped_mods = list(getattr(r, "unenforced_modifiers", ()))
+            pcre_state = "none"
+            if r.pcre is not None:
+                pcre_state = ("enforced" if self._pcre_tables(i) is not None
+                              else "outside-subset")
+            full = (not unenforced and byte_unparsed == 0
+                    and not dropped_mods
+                    and pcre_state != "outside-subset")
+            rows.append({
+                "rule": i,
+                "sid": r.sid,
+                "status": "enforced" if full else "partial",
+                "unenforced_options": unenforced,
+                "scope_options": scope,
+                "byte_ops_unparsed": byte_unparsed,
+                "dropped_modifiers": dropped_mods,
+                "pcre": pcre_state,
+            })
+        summary = {
+            "total": len(rows),
+            "enforced": sum(r["status"] == "enforced" for r in rows),
+            "partial": sum(r["status"] == "partial" for r in rows),
+            "with_scope_options": sum(
+                bool(r["scope_options"]) for r in rows
+            ),
+            "pcre_outside_subset": sum(
+                r["pcre"] == "outside-subset" for r in rows
+            ),
+            "byte_ops_unparsed": sum(r["byte_ops_unparsed"] for r in rows),
+            "dropped_modifiers": sum(
+                len(r["dropped_modifiers"]) for r in rows
+            ),
+        }
+        return {"rules": rows, "summary": summary}
+
+    def _prefilter_counts(self, streams):
+        """Stage 1: per-payload occurrence counts of the exact and the
+        case-folded content literals, (streams, patterns) each or None.
+        The WHOLE batch goes through one engine call per automaton: a call
+        per payload would pay the dispatch once per payload."""
+        ecs = fcs = None
+        if streams:
+            if self._exact is not None:
+                ecs = self._exact.scan_patterns(streams).pattern_counts
+            if self._fold is not None:
+                lows = [self._lower_lut[s] for s in streams]
+                fcs = self._fold.scan_patterns(lows).pattern_counts
+        return ecs, fcs
+
+    def scan(self, data) -> SnortReport:
+        streams = _as_streams(data)
+        alerts, cands = [], []
+        content_report = None
+        ecs, fcs = self._prefilter_counts(streams)
+        for si, stream in enumerate(streams):
+            raw = bytes(stream)
+            low = bytes(self._lower_lut[stream])
+            http_cache: dict = {}  # per-stream carve memo (_verify fills
+            # it on the FIRST buffered rule that survives the prefilter)
+            pcre_memo: dict = {}   # per-stream pcre-text result memo
+            ec = ecs[si] if ecs is not None else None
+            fc = fcs[si] if fcs is not None else None
+            uce = ucf = None
+            if self._uri_exact is not None or self._uri_fold is not None:
+                # normalized-URI prefilter: carve once (shared with
+                # _verify via http_cache), walk the short buffer through
+                # the uri AC automata host-side
+                carve = parse_http_request(raw)
+                http_cache["bufs"] = carve
+                if carve is not None:
+                    u0, u1 = carve.uri
+                    ub = (carve.uri_norm if carve.uri_norm is not None
+                          else raw[u0:u1])
+                    if self._uri_exact is not None:
+                        uce = self._ac_presence(self._uri_exact, ub)
+                    if self._uri_fold is not None:
+                        ucf = self._ac_presence(self._uri_fold,
+                                                ub.lower())
+            vecs = {"exact": ec, "fold": fc,
+                    "uri_exact": uce, "uri_fold": ucf}
+            ok = np.ones(len(self.rules), dtype=bool)
+            for kind, (rows, pids, negs) in self._gate.items():
+                vec = vecs[kind]
+                # an absent vector = the haystack itself is absent (no
+                # HTTP request -> no uri buffer): non-negated contents
+                # there can never match
+                present = (np.zeros(len(pids), dtype=bool) if vec is None
+                           else np.asarray(vec)[pids] > 0)
+                # a rule fails when a content's presence equals its
+                # negation flag ((n == 0) != negated in scalar form)
+                ok[rows[present == negs]] = False
+            out: list[SnortAlert] = []
+            hits = np.nonzero(ok)[0].tolist()
+            for i in hits:
+                if not self._verify(i, raw, low, http_cache=http_cache):
+                    continue
+                ph = self._pcre_hit(i, raw, memo=pcre_memo)
+                if ph is False:
+                    continue
+                r = self.rules[i]
+                out.append(SnortAlert(rule_index=i, sid=r.sid, msg=r.msg,
+                                      pcre_checked=ph is True))
+            alerts.append(out)
+            cands.append(hits)
+        return SnortReport(alerts=alerts, prefilter_candidates=cands,
+                           content_report=content_report)
+
+
+def compile_snort(source: str, config: EngineConfig = DEFAULT_CONFIG,
+                  device=None) -> SnortMatcher:
+    """Load a Snort ``.rules`` file (path) or rules text into the
+    prefilter+verify pipeline, with stage 1 on ``device``."""
+    rules = (load_snort_rules(source) if os.path.exists(source)
+             else parse_snort_rules(source))
+    if not rules:
+        raise ValueError("no rules parsed")
+    return SnortMatcher(rules, config, device)
+
+
+def compile_l7(path: str, config: EngineConfig = DEFAULT_CONFIG,
+               strategy: str = "lazy", prefilter: bool = False, device=None):
+    """Compile l7-filter ``.pat`` protocol pattern file(s) — the upstream
+    source format of the reference's l-7_filter ruleset (models/l7.py) —
+    into one multi-rule matcher on ``device``.  ``path`` is one ``.pat``
+    file or a directory of them; rule names land in ``matcher.rule_names``.
+    ``prefilter=True`` guards literal-bearing protocols behind the
+    Aho-Corasick prefilter on the device (``PrefilteredRuleSet``;
+    identical counts)."""
+    pats = (load_l7_dir(path) if os.path.isdir(path)
+            else [load_l7_pattern(path)])
+    if not pats:
+        raise ValueError(f"no .pat files under {path!r}")
+    patterns = [p.compile_pattern for p in pats]
+    if prefilter:
+        m = PrefilteredRuleSet(patterns, config, strategy=strategy,
+                               device=device)
+    else:
+        m = RuleSetMatcher(patterns, config, strategy=strategy, device=device)
+    m.rule_names = [p.name for p in pats]
+    return m

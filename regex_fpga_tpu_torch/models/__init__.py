@@ -5,7 +5,9 @@ The port imports nothing of the JAX package. The modules here are copies of
 the ones the port and ``chip_smoke.py`` use (``coe``, ``csr``,
 ``export_csr``, ``regex``, ``lazy_dfa``, ``literals``, ``oracle``,
 ``snort``, ``snort_corpus``, ``l7_corpus``, ``tokenizer_dfa``, and
-``captures`` and ``backtrack`` for the span API's host matchers), with their
+``captures`` and ``backtrack`` for the span API's host matchers; ``http``
+for the Snort verify's HTTP buffers, ``l7`` for ``compile_l7`` and
+``golden`` for the CLI's conformance gate), with their
 relative imports; ``tests/test_torch_models.py`` holds each to its original
 on seeded inputs. ``LazyDfa`` differs in one point: its host walks run on the
 portable native build (``regex_fpga_tpu_torch.native``) and never on a
@@ -18,11 +20,24 @@ which ``chip_smoke.py`` and the tests scan.
 from .coe import write_coe
 from .csr import CsrAutomaton, byte_classes, load_coe
 from .export_csr import regexes_to_csr
-from .l7_corpus import gen_l7_patterns, gen_l7_traffic
+from .golden import GOLDEN_KEYS, load_golden_histograms
+from .http import HttpBuffers, normalize_uri, parse_http_request
+from .l7 import L7Pattern, load_l7_dir, load_l7_pattern, parse_l7_pattern
+from .l7_corpus import gen_l7_patterns, gen_l7_traffic, write_pat_dir
 from .lazy_dfa import LazyDfa
 from .literals import AhoCorasick, build_aho_corasick
 from .oracle import dfa_step_table, nfa_scan
-from .snort import parse_snort_rules
+from .snort import (
+    ByteExtract,
+    ByteJump,
+    ByteTest,
+    IsDataAt,
+    SnortContent,
+    SnortRule,
+    load_snort_rules,
+    parse_snort_rules,
+    pcre_to_pattern,
+)
 from .snort_corpus import gen_community_rules, gen_traffic
 from .regex import (
     CompiledDfa,
@@ -40,10 +55,19 @@ from .tokenizer_dfa import (
 
 __all__ = [
     "AhoCorasick",
+    "ByteExtract",
+    "ByteJump",
+    "ByteTest",
     "CompiledDfa",
     "CsrAutomaton",
+    "GOLDEN_KEYS",
     "GPT2_PRESPLIT",
+    "HttpBuffers",
+    "IsDataAt",
+    "L7Pattern",
     "LazyDfa",
+    "SnortContent",
+    "SnortRule",
     "TokenizerDfa",
     "build_aho_corasick",
     "build_tokenizer_dfa",
@@ -58,13 +82,22 @@ __all__ = [
     "gen_l7_traffic",
     "gen_traffic",
     "load_coe",
+    "load_golden_histograms",
+    "load_l7_dir",
+    "load_l7_pattern",
+    "load_snort_rules",
     "nfa_scan",
+    "normalize_uri",
+    "parse_http_request",
+    "parse_l7_pattern",
     "parse_pattern",
     "parse_snort_rules",
+    "pcre_to_pattern",
     "l7_corpus_nfa",
     "regexes_to_csr",
     "snort_corpus_nfa",
     "write_coe",
+    "write_pat_dir",
 ]
 
 

@@ -1,15 +1,17 @@
 """The native host walker, built from source without ``-march=native``.
 
 The lazy subset DFA (``models.LazyDfa``) walks the host through the C++
-scanners of ``native/golden_scan.cpp``, and so does the forward stage of
-span extraction (``anchored_spans``). The JAX package loads them from a
+scanners of ``native/golden_scan.cpp``, and so do the forward stage of
+span extraction (``anchored_spans``) and the Snort verify's pcre check
+(``dfa_scan``, the single-cursor DFA walk). The JAX package loads them from a
 library committed beside that source and built with ``-march=native``, which
 can die of an illegal instruction on another CPU instead of raising. The
 port never opens that file: at first use it compiles the same source with
 ``g++ -O3 -shared -fPIC`` (portable code for the running architecture) into
 ``build/native/`` at the repository root, under a name that carries a digest
 of the source and the flags. Every ``LazyDfa`` of the port,
-``nfa_match_positions`` and ``anchored_spans`` call this library; the JAX
+``nfa_match_positions``, ``anchored_spans`` and ``dfa_scan`` call this
+library; the JAX
 package's bindings are neither imported nor touched. A missing ``g++`` or a failed build raises;
 the port never drops to a Python walk.
 """
@@ -26,8 +28,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["BUILD_DIR", "SOURCE", "GXX_FLAGS", "anchored_spans", "library",
-           "nfa_match_positions"]
+__all__ = ["BUILD_DIR", "SOURCE", "GXX_FLAGS", "anchored_spans", "dfa_scan",
+           "library", "nfa_match_positions"]
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCE = ROOT / "native" / "golden_scan.cpp"
@@ -97,6 +99,43 @@ def library() -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def dfa_scan(table: np.ndarray, class_of: np.ndarray, accept: np.ndarray,
+             stream: np.ndarray, start: int = 0, want_mask: bool = True):
+    """The single-cursor DFA walk over ``table`` (C, S) int32 with byte
+    classes ``class_of`` (256,): accept is counted before each byte and the
+    last byte's accept is dropped. Returns (counts (S,) int64, match mask
+    (len,) bool or None, final state). Raises on a transition out of
+    [0, S): the C walk indexes the table unchecked."""
+    lib = library()
+    _, s = table.shape
+    _check_table_domain(np.asarray(table), s)
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    class_of = np.ascontiguousarray(class_of, dtype=np.int32)
+    accept8 = np.ascontiguousarray(accept, dtype=np.uint8)
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    counts = np.zeros(s, dtype=np.int64)
+    mask = np.zeros(len(stream), dtype=np.uint8) if want_mask else None
+    final = lib.dfa_scan(
+        _ptr(table, ctypes.c_int32), _ptr(class_of, ctypes.c_int32),
+        _ptr(accept8, ctypes.c_uint8), s,
+        _ptr(stream, ctypes.c_uint8), len(stream), int(start),
+        _ptr(counts, ctypes.c_int64),
+        _ptr(mask, ctypes.c_uint8) if want_mask else None,
+    )
+    return counts, (mask.astype(bool) if want_mask else None), int(final)
+
+
+def _check_table_domain(table: np.ndarray, s: int) -> None:
+    """The host side of the ``domain_ok`` guard: a transition target out of
+    [0, S) (a corrupt build or a truncated file) raises here instead of
+    walking off the counts and accept arrays."""
+    if not ((table >= 0) & (table < s)).all():
+        raise RuntimeError(
+            "native DFA walk: transition table contains out-of-domain "
+            "state ids (SURVEY.md §5.2 guard) — corrupt table"
+        )
 
 
 def nfa_match_positions(delta: np.ndarray, class_of: np.ndarray,

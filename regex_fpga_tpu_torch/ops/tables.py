@@ -41,14 +41,13 @@ __all__ = [
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` means the first CUDA card, and raises when no card is
-    visible: the CPU runs only when the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA card is visible; pass device='cpu' "
-                               "to run the plain PyTorch versions")
-        device = "cuda"
-    return torch.device(device)
+    """``None`` means the first CUDA card. A CUDA device raises when no
+    card is visible: the CPU runs only when the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is visible; pass device='cpu' "
+                           "to run the plain PyTorch versions")
+    return device
 
 
 def host_to_device(arr, device, dtype=None) -> torch.Tensor:

@@ -1,2 +1,3 @@
-"""Engine settings and run metrics: the port's copies of the JAX package's
-``regex_fpga_tpu/utils/config.py`` and ``utils/metrics.py``."""
+"""Engine settings, run metrics and the conformance fixture loaders: the
+port's copies of the JAX package's ``regex_fpga_tpu/utils/config.py``,
+``utils/metrics.py`` and ``utils/traces.py``."""

@@ -95,6 +95,19 @@ def test_scan_ragged_tokenizer_matches_jax():
     assert_reports_equal(tm.scan(streams), jm.scan(streams))
 
 
+@pytest.mark.parametrize("sizes", [(100_000, 120_000, 70_000),
+                                   (200, 150_000, 0)])
+def test_scan_ragged_long_rows_match_jax(sizes):
+    """Rows that average more than 64 KiB in a chunk are copied to the
+    device one by one; shorter ones go up as one concatenation."""
+    cfg = EngineConfig(scan_backend="device", num_blocks=64,
+                       chunk_bytes=1 << 17)
+    jm, tm = matchers(None, config=cfg)
+    text = np.frombuffer(FRAG * 3000, np.uint8)
+    streams = [text[i:i + n] for i, n in enumerate(sizes)]
+    assert_reports_equal(tm.scan(streams), jm.scan(streams))
+
+
 @pytest.mark.parametrize("pattern", [None, *PATTERNS])
 @pytest.mark.parametrize("n", [0, 1, 5, 63, 1024, 20_011])
 def test_count_matches_jax(pattern, n):
@@ -179,11 +192,18 @@ def test_empty_inputs():
 @pytest.mark.parametrize("backend", ["auto", "host"])
 def test_unported_backends_raise(backend):
     """Only the device engines are ported; the router that chooses between
-    them and the host walker comes with the host walker."""
-    with pytest.raises(NotImplementedError, match="router"):
-        tapi.compile_tokenizer(config=EngineConfig(scan_backend=backend),
-                               device="cpu")
-    assert tapi.DEFAULT_CONFIG.scan_backend == "device"
+    them and the host walker comes with the host walker. Until then
+    "host" raises and "auto" (the default) runs the device engines, which
+    give the histograms the host walker would."""
+    cfg = EngineConfig(scan_backend=backend)
+    if backend == "host":
+        with pytest.raises(NotImplementedError, match="router"):
+            tapi.compile_tokenizer(config=cfg, device="cpu")
+    else:
+        tm = tapi.compile_tokenizer(config=cfg, device="cpu")
+        jm = japi.compile_tokenizer(config=cfg)
+        assert_reports_equal(tm.scan(TEXT), jm.scan(TEXT))
+    assert tapi.DEFAULT_CONFIG.scan_backend == "auto"
 
 
 def test_unported_surface_raises():
@@ -226,7 +246,7 @@ def test_port_imports_no_jax():
                 or n.split(".")[0] == "regex_fpga_tpu"], names
     modules = [n for n in names if n.split(".")[0] in ("regex_fpga_tpu_torch",)]
     code = (
-        "import importlib, sys\n"
+        "import importlib, os, sys\n"
         "import chip_smoke\n"
         f"for name in {modules!r}:\n"
         "    try:\n"
@@ -241,6 +261,9 @@ def test_port_imports_no_jax():
         "import regex_fpga_tpu_torch.ops.lazy_scan\n"
         "import regex_fpga_tpu_torch.ops.nfa_engine\n"
         "import regex_fpga_tpu_torch.native\n"
+        "import regex_fpga_tpu_torch.__main__ as cli\n"
+        "assert cli.main(['--device', 'cpu', 'gen-corpus', 'snort', "
+        "os.devnull, '-n', '3']) == 0\n"
         "import pkgutil, regex_fpga_tpu_torch\n"
         "for info in pkgutil.walk_packages(regex_fpga_tpu_torch.__path__,\n"
         "                                  'regex_fpga_tpu_torch.'):\n"
@@ -262,6 +285,9 @@ def test_port_imports_no_jax():
         "    nm = regex_fpga_tpu_torch.api.compile_ruleset(aut, strategy=st, device='cpu')\n"
         "    assert nm.scan([b'hello world!', b'world']).total == 3\n"
         "    nm.stream_scanner().feed(b'hello world')\n"
+        "ids = regex_fpga_tpu_torch.api.compile_snort('alert tcp any any -> any "
+        "any (msg:\"a\"; content:\"ab\"; pcre:\"/ab+c/\"; sid:1;)', device='cpu')\n"
+        "assert ids.scan([b'xabbc', b'ab']).sids() == [1]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'regex_fpga_tpu'))\n"
         "assert not bad, bad\n"

@@ -5,6 +5,7 @@ be equal. Also: the port's entry points run on the card by default and raise
 when none is visible."""
 
 import dataclasses
+import os
 import types
 
 import numpy as np
@@ -14,8 +15,10 @@ import torch
 from regex_fpga_tpu.models import coe, csr, export_csr, l7_corpus, lazy_dfa
 from regex_fpga_tpu.models import literals, oracle, regex, snort, snort_corpus
 from regex_fpga_tpu.models import backtrack, captures, tokenizer_dfa
+from regex_fpga_tpu.models import golden, http, l7
 from regex_fpga_tpu.utils import config as jconfig
 from regex_fpga_tpu.utils import metrics as jmetrics
+from regex_fpga_tpu.utils import traces as jtraces
 from regex_fpga_tpu_torch import api as tapi
 from regex_fpga_tpu_torch import models as tm
 from regex_fpga_tpu_torch import re_compat
@@ -24,6 +27,7 @@ from regex_fpga_tpu_torch.models import captures as tcaptures
 from regex_fpga_tpu_torch.ops import lazy_scan
 from regex_fpga_tpu_torch.utils import config as tconfig
 from regex_fpga_tpu_torch.utils import metrics as tmetrics
+from regex_fpga_tpu_torch.utils import traces as ttraces
 
 from chip_smoke import WORDS
 from conftest import random_nfa
@@ -33,7 +37,7 @@ from test_torch_api import PATTERNS
 jm = types.SimpleNamespace(**{
     name: getattr(module, name) for module in (
         coe, csr, export_csr, l7_corpus, lazy_dfa, literals, oracle, regex,
-        snort, snort_corpus, tokenizer_dfa)
+        snort, snort_corpus, tokenizer_dfa, golden, http, l7)
     for name in tm.__all__ if hasattr(module, name)})
 
 
@@ -240,10 +244,13 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_the_card(no_card):
+def test_entry_points_default_to_the_card(no_card, tmp_path):
     """Without ``device`` the entry points ask for a CUDA card and raise when
     none is visible; ``device="cpu"`` is the explicit way to the plain path."""
     aut = tm.regexes_to_csr([b"wor", b"l+d"])[0]
+    pat_dir = tmp_path / "pats"
+    pat_dir.mkdir()
+    tm.write_pat_dir(str(pat_dir), 4)
     calls = [
         lambda: tapi.compile_tokenizer(),
         lambda: tapi.compile_regex(PATTERNS[0]),
@@ -257,9 +264,87 @@ def test_entry_points_default_to_the_card(no_card):
         lambda: tapi.compile_ruleset(aut),
         lambda: tapi.compile_ruleset(aut, strategy="active-set"),
         lambda: lazy_scan.lazy_nfa_scan(tm.LazyDfa(aut), np.zeros(10, np.uint8)),
+        lambda: tapi.compile_snort(
+            'alert tcp any any -> any any (msg:"a"; content:"ab"; sid:1;)'),
+        lambda: tapi.compile_l7(str(pat_dir)),
+        lambda: tapi.compile_l7(str(pat_dir), prefilter=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
     assert tapi.compile_ruleset(aut, device="cpu").device.type == "cpu"
     assert tapi.compile_tokenizer(device="cpu").device.type == "cpu"
+
+
+HTTP_PAYLOADS = [
+    b"GET /a?q=1 HTTP/1.1\r\nHost: h\r\nCookie: k=v\r\n\r\nBODY",
+    b"NOTAMETHOD /x HTTP/1.1\r\n", b"", b"GET  HTTP/1.1\r\n",
+    b"POST /p HTTP/1.0\nA: 1\n", b"GET /%61dmin/./x/../login HTTP/1.1\r\n\r\n",
+    b"GET /p?a=%41&b=..//x HTTP/1.1\r\nCookie: SESSID=1\r\n\r\nbody",
+    b"PROPFIND * HTTP/1.1\r\n\r\n", b"GET http://h//x HTTP/1.0\r\n\r\n",
+]
+
+
+def seeded_request(seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"/.%2e41a-z?&=", np.uint8)
+    uri = bytes(rng.choice(alphabet, size=int(rng.integers(1, 40))).tolist())
+    return b"GET /" + uri + b" HTTP/1.1\r\nX: y\r\n\r\n" + uri
+
+
+@pytest.mark.parametrize("payload", HTTP_PAYLOADS + [seeded_request(s)
+                                                     for s in range(8)])
+def test_http_carve_matches_jax(payload):
+    assert tm.parse_http_request(payload) == jm.parse_http_request(payload)
+    for uri in (payload, payload[4:30], b"/a/b/../../../c", b"/a%zz%4", b"*"):
+        assert tm.normalize_uri(uri) == jm.normalize_uri(uri)
+
+
+def test_l7_loader_matches_jax(tmp_path):
+    texts = ["name\nkernelpat\nuserspace pattern=userpat\n",
+             "# c\nhttp\nhttp/(0\\.9|1\\.0)\nuserspace flags=REG_ICASE\n"]
+    for text in texts:
+        assert dataclasses.astuple(tm.parse_l7_pattern(text)) == \
+            dataclasses.astuple(jm.parse_l7_pattern(text))
+    for bad in ("# only comments\n", "name-only\n"):
+        with pytest.raises(ValueError):
+            tm.parse_l7_pattern(bad)
+    tm.write_pat_dir(str(tmp_path), 20)
+    got, want = tm.load_l7_dir(str(tmp_path)), jm.load_l7_dir(str(tmp_path))
+    assert [dataclasses.astuple(p) for p in got] == \
+        [dataclasses.astuple(p) for p in want]
+    assert [p.compile_pattern for p in got] == [p.compile_pattern for p in want]
+    one = str(tmp_path / sorted(tmp_path.iterdir())[0].name)
+    assert dataclasses.astuple(tm.load_l7_pattern(one)) == \
+        dataclasses.astuple(jm.load_l7_pattern(one))
+
+
+def test_golden_histograms_copy_matches_jax():
+    """The port keeps its own byte-for-byte copy of the golden tables."""
+
+    from regex_fpga_tpu_torch.models import golden as tgolden
+
+    with open(golden._PATH, "rb") as a, open(tgolden._PATH, "rb") as b:
+        assert a.read() == b.read()
+    assert os.path.dirname(tgolden._PATH) != os.path.dirname(golden._PATH)
+    assert tm.GOLDEN_KEYS == jm.GOLDEN_KEYS
+    assert tm.load_golden_histograms() == jm.load_golden_histograms()
+
+
+def test_traces_match_jax(tmp_path, monkeypatch):
+    assert ttraces.RULESETS == jtraces.RULESETS
+    assert ttraces.REFERENCE_RUN_LENGTH == jtraces.REFERENCE_RUN_LENGTH
+    data = np.random.default_rng(4).integers(0, 256, size=300).tolist()
+    path = tmp_path / "t.mem"
+    path.write_text("".join(f"{b:02x}\n" for b in data) + "\n")
+    for limit in (None, 0, 17, 1000):
+        np.testing.assert_array_equal(ttraces.read_mem_trace(str(path), limit),
+                                      jtraces.read_mem_trace(str(path), limit))
+    monkeypatch.setenv("REGEX_FPGA_REFERENCE", str(tmp_path))
+    assert ttraces.reference_root() == jtraces.reference_root() == str(tmp_path)
+    monkeypatch.delenv("REGEX_FPGA_REFERENCE")
+    # without the variable the fixtures are looked for inside the checkout
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = ttraces.reference_root()
+    assert root == os.path.join(repo, "reference")
+    assert os.path.commonpath([root, repo]) == repo
