@@ -64,7 +64,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    over 64 MiB, grep, acgrep, rgrep, snort, snort --coverage, compile-rules
    --scan, scan, gen-corpus and presplit, each held to the in-process API
    and to the JAX CLI's exit code, with its wall time;
-7. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
+7. the engine router and the exact fallback: 55 counting calls that the
+   priors' fit uses (the tokenizer, 300- and 1,500-keyword Aho-Corasick
+   automata and the two Snort prefilter automata; 4 KiB, 1 MiB and 64 MiB
+   in 1, 4 and 64 streams, one stream of 256 KiB, and the Snort batch of
+   4,000 payloads), 20 held-out single streams of sizes no fit uses (6, 12,
+   64 and 128 KiB), and a contested 4 x 64 MiB batch that probes both
+   engines, all under "device", "host" and "auto", each held to a serial
+   native walk (counts and final states), with the median GB/s of both
+   engines, the route "auto" took and its rate against the better engine's,
+   and the router's model beside them; the Snort call under "auto" and
+   "device"; K6 (dfa_block_fns) against its plain version on the parity
+   and reversed (aa)*b automata over 16 and 64 MiB and on the Aho-Corasick
+   table over 64 MiB, with its shared-load floor, and DfaMatcher
+   calls that take the exact fallback; the k-gram gate sweep (K2 and K3 at
+   k = 2, 4 and 8 for S = 23, 32, 67, 107, 836 and 4,008); and the
+   router's priors fitted from this run beside the committed ones;
+8. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
 
 ``--out DIR`` also writes nvcc's report and the results there.
 ``--profile`` adds, after phase 6, one torch.profiler run of each API call
@@ -114,6 +130,8 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                           "regex_fpga_tpu/ops/pallas_kgram.py:65"),
     "nfa_active_scan": ("cuda", "regex_fpga_tpu_torch/csrc/nfa_active.cu",
                         "regex_fpga_tpu/ops/nfa_engine.py:43"),
+    "dfa_block_fns": ("cuda", "regex_fpga_tpu_torch/csrc/dfa_block_fns.cu",
+                      "regex_fpga_tpu/ops/dfa_engine.py:78"),
 }
 # no single PyTorch call computes a chain pass or an active-set step, so
 # there is no library call to time beside the kernels
@@ -211,6 +229,17 @@ def reset_launches() -> None:
                      hopper_nfa.LAUNCHES):
         for k in launches:
             launches[k] = 0
+
+
+def forced(m, backend: str):
+    """A copy of matcher ``m`` whose counting scans take ``backend``
+    ("device" or "host") instead of the engine router's choice."""
+    import copy
+    import dataclasses
+
+    out = copy.copy(m)
+    out.config = dataclasses.replace(m.config, scan_backend=backend)
+    return out
 
 
 def tiled(data: bytes, n: int) -> np.ndarray:
@@ -463,8 +492,9 @@ def phase_kernels(dev, tok_tables, tok_start, ac_tables):
         print(f"time: {name} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
               f"{bounds[name]:.4f} ms, chain floor {floors[name] / 1e6:.4f} ms "
               f"({64 * MIB / ms / 1e6:.1f} GB/s of text)", flush=True)
+    results["extra_ms"] = {}
     for name, fn in extra.items():
-        ms = event_ms(fn, 20)
+        ms = results["extra_ms"][name] = event_ms(fn, 20)
         print(f"time: {name} {ms:.4f} ms ({64 * MIB / ms / 1e6:.1f} GB/s of text)",
               flush=True)
     return results
@@ -560,13 +590,17 @@ def phase_nfa_kernels(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
               max_abs_err(hd.dfa_chain_counts(wide_t, wide_a, cls, ent),
                           hd.dfa_chain_counts_plain(wide_t, wide_a, cls, ent)))
     check(err == 0, f"K1/K2 on the padded lazy table differ from plain by {err}")
-    for name, fn in (("dfa_chain", hd.dfa_chain), ("dfa_chain_counts", hd.dfa_chain_counts)):
+    for name, fn, plain in (
+            ("dfa_chain", hd.dfa_chain, hd.dfa_chain_plain),
+            ("dfa_chain_counts", hd.dfa_chain_counts, hd.dfa_chain_counts_plain)):
         ms = event_ms(lambda: fn(wide_t, wide_a, cls, ent), 20)
+        _, plain_ms = one_run_ms(lambda: plain(wide_t, wide_a, cls, ent))
         results[name]["lazy_global"] = {
             "shape": f"lazy table padded to ({c}, 2049), global memory, {nb} lanes x {b} steps",
-            "ms": ms}
+            "ms": ms, "plain_ms": plain_ms}
         print(f"time: {name}[lazy table padded to ({c}, 2049), global memory, {nb}x{b}] "
-              f"{ms:.4f} ms, bit-exact against plain", flush=True)
+              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bit-exact against plain",
+              flush=True)
     # the fixed cost of a launch (table fill, first window): one window
     short = cls[:32]
     ms = event_ms(lambda: hd.dfa_chain(table, accept, short, ent), 20)
@@ -1217,10 +1251,11 @@ def phase_ids(dev, snort_bytes, l7_bytes, kernel_times):
     # stage 1's K2 shapes: each automaton with the stall class, over the
     # ragged batch (lanes = payloads x blocks, a histogram row per payload)
     k2_args = {}
+    # (on the device: under "auto" the router sends stage 1 to the host)
     for name, m, data in (("exact", ids._exact, streams),
                           ("case-folded", ids._fold, lows)):
         with recorded_k2() as calls:
-            m.scan_patterns(data)
+            forced(m, "device").scan_patterns(data)
         check(len(calls) >= 1, f"{name}: stage 1 launched K2")
         k2_args[name] = calls[-1]
         (table, _, cls_seq, _), kw = calls[-1]
@@ -1339,7 +1374,7 @@ def phase_ids(dev, snort_bytes, l7_bytes, kernel_times):
 
     check_cli(dev, work, ids, rules_text, payloads, snort_bytes, l7_bytes)
     shutil.rmtree(work, ignore_errors=True)
-    return launches, device_calls
+    return launches, device_calls, ids, payloads, (medians["snort"], rep)
 
 
 def check_cli(dev, work, ids, rules_text, payloads, snort_bytes, l7_bytes):
@@ -1452,6 +1487,487 @@ def check_cli(dev, work, ids, rules_text, payloads, snort_bytes, l7_bytes):
               f"lines)", flush=True)
 
 
+# ---------------------------------------------------------------- phase 7
+
+FIT_SPEC_BYTES = 256 << 10  # with 1 MiB: the host's speculative walk
+HELD_OUT_BYTES = (6 << 10, 12 << 10, 64 << 10, 128 << 10)  # near the modeled crossover
+# timed runs per case and engine (3 for the Snort batch)
+ROUTER_REPEATS = {n: 5 for n in (4096, FIT_SPEC_BYTES, MIB, *HELD_OUT_BYTES)}
+ROUTER_REPEATS.update({64 * MIB: 2, 256 * MIB: 2})
+GATE_STATES = (23, 32, 67, 107)
+
+
+def oracle_scan(m, streams):
+    """Counts (n, S) and final states of a serial native walk of each
+    stream, the end-of-stream match included: the host oracle of phase 7."""
+    from regex_fpga_tpu_torch import native
+
+    t = [x.cpu().numpy() for x in (m.tables.table, m.tables.class_of,
+                                   m.tables.accept)]
+    counts = np.zeros((len(streams), m.num_states), np.int64)
+    finals = np.zeros(len(streams), np.int64)
+    for i, s_ in enumerate(streams):
+        counts[i], _, finals[i] = native.dfa_scan(*t, s_, m.start,
+                                                  want_mask=False)
+        if len(s_) and m._accept_eof[finals[i]]:
+            counts[i, finals[i]] += 1
+    return counts, finals
+
+
+def device_finals(m, streams):
+    """The final states the device engines reach on ``streams`` (the path
+    that ``scan`` takes for this batch shape)."""
+    if len(streams) == 1:
+        m._scan_stream_counts(streams[0])
+        return np.array([m._last_final])
+    if len({len(s_) for s_ in streams}) == 1:
+        return m._scan_batch_counts(np.stack(streams))[3]
+    return m._scan_ragged_counts(streams)[3]
+
+
+def gate_automata():
+    """(S, tables) of the k-gram gate sweep: the tokenizer and Aho-Corasick
+    automata of 32, 67 and 107 states over the keyword list."""
+    from regex_fpga_tpu_torch.models import build_aho_corasick, build_tokenizer_dfa
+    from regex_fpga_tpu_torch.ops.tables import build_dfa_tables
+
+    tok = build_tokenizer_dfa()
+    out = [build_dfa_tables(tok.table, tok.accept)]
+    for words in ([b"error0000", b"warning000", b"fail0ure", b"GET "],
+                  WORDS[:8], WORDS[:24]):
+        dfa = build_aho_corasick(words).dfa
+        out.append(build_dfa_tables(dfa.table, dfa.accept))
+    check([t.num_states for t in out] == list(GATE_STATES),
+          f"gate automata of {[t.num_states for t in out]} states")
+    return out
+
+
+def phase_gate(dev, text, big):
+    """The k-gram gate sweep (ops/kgram.py's KGRAM_SWEEP): over one 64 MiB
+    chunk of text at 65,536 lanes, K2 (level 0) and K3 at k = 2, 4 and 8
+    bytes a step (levels 1-3), for the automata of GATE_STATES over
+    ``text`` and the larger tables of ``big`` ((tables, traffic) pairs) over
+    their traffic; K3 over raw text where the kernel takes the table with
+    its maps, else the level's map of the bytes to class ids and K3 over
+    them. K2 takes the class ids that every device scan maps (timed apart).
+    The K2 against K3 (k = 4) crossover is KGRAM_MAX_STATES."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+    from regex_fpga_tpu_torch.ops import hopper_kgram as hk
+    from regex_fpga_tpu_torch.ops.kgram import (KGRAM_MAX_STATES, build_kgram,
+                                                choose_kgram_level,
+                                                kgram_maps, kgram_step_cost,
+                                                pack_ta)
+
+    nb = 64 * MIB // 1024  # 65,536 lanes of 1,024 bytes
+    ent = torch.zeros(nb, dtype=torch.int32, device=dev)
+    rows, classes = [], {}
+    for t, data in [(g, text) for g in gate_automata()] + list(big):
+        t = t.to(dev)
+        raw = torch.as_tensor(data[:64 * MIB], device=dev)
+        s, c = t.num_states, t.num_classes
+        lut = t.class_of.to(torch.uint8)
+        cls = torch.index_select(lut, 0, raw.int()).reshape(nb, 1024).T
+        ms = event_ms(lambda: hd.dfa_chain_counts(t.table, t.accept, cls, ent), 20)
+        # the scan pipeline's byte-class map (DfaMatcher._classes), apart
+        map_ms = event_ms(lambda: torch.index_select(lut, 0, raw.int()), 20)
+        route = hd.dfa_chain_route("counts", c, s, num_lanes=nb)["table"]
+        rows.append({"S": s, "level": 0, "C_l": c, "route": route,
+                     "input": "class ids", "ms": ms, "class_map_ms": map_ms})
+        classes[s] = [c]
+        for lv in (1, 2, 3):
+            kg = build_kgram(t, levels=lv)
+            if kg is None:
+                print(f"router: gate S={s} level {lv}: the composed classes "
+                      f"exceed build_kgram's limits", flush=True)
+                break
+            c_l, k = kg.level_classes[-1], kg.k
+            classes[s].append(c_l)
+            ta = pack_ta(torch.as_tensor(kg.table),
+                         torch.as_tensor(kg.acc_table)).to(dev)
+            maps = kgram_maps(kg).to(dev)
+            if hk.kgram_bytes_supported(ta, maps):
+                src = raw.reshape(nb, 1024 // k, k).transpose(0, 1)
+                ms = event_ms(lambda: hk.kgram_chain_bytes(ta, maps, src, ent), 20)
+                how, route = "raw text", hk.kgram_chain_route(ta, maps, num_lanes=nb)
+            else:  # the level's own map from the bytes counts with it
+                dtype = torch.int16 if c_l < 1 << 15 else torch.int32
+                ms = event_ms(lambda: hk.kgram_chain(
+                    ta, hk.map_classes(maps, raw.reshape(nb, 1024)).T.to(dtype),
+                    ent), 20)
+                how, route = "bytes mapped to class ids", hk.kgram_chain_route(
+                    ta, None, class_dtype=dtype, num_lanes=nb)
+            rows.append({"S": s, "level": lv, "C_l": c_l, "route": route["table"],
+                         "input": how, "ms": ms})
+    for r in rows:
+        r["model_ms"] = kgram_step_cost(r["S"], r["C_l"], r["level"]) * 64 * MIB * 1e3
+        extra = (f"; the scan pipeline's byte-class map {r['class_map_ms']:.4f} ms"
+                 if "class_map_ms" in r else "")
+        print(f"router: gate S={r['S']} level {r['level']} C_l={r['C_l']} "
+              f"({r['route']}, {r['input']}): {r['ms']:.4f} ms per 64 MiB "
+              f"(committed model {r['model_ms']:.4f}){extra}", flush=True)
+    by = {(r["S"], r["level"]): r["ms"] for r in rows}
+    card = 0
+    for s in GATE_STATES:
+        if by.get((s, 2), float("inf")) >= by[(s, 0)]:
+            break
+        card = s
+    sweep = {lv: [(r["S"], r["C_l"], r["route"], round(r["ms"], 4))
+                  for r in rows if r["level"] == lv] for lv in (0, 1, 2, 3)}
+    levels = {s: choose_kgram_level(s, cl) for s, cl in classes.items()
+              if len(cl) > 1}
+    print(f"router: gate: K3 (k = 4) wins up to S={card} of {list(GATE_STATES)}; "
+          f"KGRAM_MAX_STATES = {KGRAM_MAX_STATES}; level classes "
+          f"{json.dumps(classes)}; choose_kgram_level under the committed "
+          f"model {json.dumps(levels)}", flush=True)
+    print(f"router: gate: KGRAM_SWEEP of this run {json.dumps(sweep)}", flush=True)
+    return {"rows": rows, "card_max_states": card, "sweep": sweep,
+            "level_classes": classes, "choose_kgram_level": levels,
+            "KGRAM_MAX_STATES": KGRAM_MAX_STATES}
+
+
+def phase_fallback(dev, ac_tables, rng):
+    """K6: dfa_block_fns against its plain version, bit for bit, on the
+    reversed (aa)*b automaton and a parity automaton over 16 MiB and 64 MiB,
+    and on the 300-keyword Aho-Corasick table (S=836) over 64 MiB; its time,
+    bound and route; then the DfaMatcher calls that take the fallback.
+    Returns K6's kernel-line entry and the matcher calls."""
+    from regex_fpga_tpu_torch import api
+    from regex_fpga_tpu_torch.models import CompiledDfa, compile_pattern
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+    from regex_fpga_tpu_torch.ops.tables import build_dfa_tables
+
+    # the parity of the bytes below 0x80: on random bytes a block's entry
+    # state is a coin flip that no replay of the bytes before it predicts
+    ptable = np.zeros((256, 2), dtype=np.int32)
+    ptable[:128] = [1, 0]
+    ptable[128:] = [0, 1]
+    parity = CompiledDfa(table=ptable, accept=np.array([False, True]),
+                         start=0, dead=0)
+    rev = compile_pattern(r"(aa)*b", anchored=False, reverse=True)
+    autos = {"parity": parity, "reversed (aa)*b": rev}
+    tabs = {k: build_dfa_tables(d.table, d.accept, device=dev)
+            for k, d in autos.items()}
+    tabs["aho-corasick"] = ac_tables
+    # runs of a's and b's for (aa)*b, random bytes for the others
+    ab = np.where(rng.random(64 * MIB) < 0.9999, ord("a"), ord("b")).astype(np.uint8)
+    noise = rng.integers(0, 256, size=64 * MIB, dtype=np.uint8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    err, times = 0, {}
+    for name, t in tabs.items():
+        data = ab if name.startswith("reversed") else noise
+        lut = t.class_of.to(torch.uint8)
+        for size in (16 * MIB, 64 * MIB):
+            if name == "aho-corasick" and size == 16 * MIB:
+                continue
+            cls = torch.take(lut, torch.as_tensor(data[:size], device=dev).long()) \
+                .reshape(-1, 1024)
+            got = hd.dfa_block_fns(t.table, cls)
+            want, plain_ms = one_run_ms(lambda: hd.dfa_block_fns_plain(t.table, cls))
+            e = max_abs_err((got,), (want,))
+            err = max(err, e)
+            ms = event_ms(lambda: hd.dfa_block_fns(t.table, cls), 5)
+            c, s = t.table.shape
+            nb = cls.shape[0]
+            route = hd.dfa_block_fns_route(c, s, nb)
+            bound = bound_ms((cls, t.table), (got,))
+            loads = nb * 1024 * s
+            # shared-memory loads: at most 32 a clock an SM, at the top clock
+            floor = loads / (sms * 32 * clock_hz) * 1e3
+            times[(name, size)] = {"shape": f"{name} ({c}, {s}), {nb} blocks x 1024",
+                                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                   "loads": loads, "smem_load_floor_ms": floor}
+            print(f"time: dfa_block_fns[{name} S={s} C={c}, {nb} blocks x 1024, "
+                  f"table {route['table']}, {route['group']} block(s) a round] "
+                  f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms, "
+                  f"shared-load floor {floor:.4f} ms ({loads} loads, {sms} "
+                  f"SMs x 32 a clock at {clock_hz / 1e6:.0f} MHz), "
+                  f"{loads / ms / 1e9:.2f} T table loads/s, bit-exact "
+                  f"against plain (max_abs_err {e}, tolerance 0)", flush=True)
+    check(err == 0, f"dfa_block_fns differs from its plain version by {err}")
+    main = times[("aho-corasick", 64 * MIB)]
+    return {"max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": LIBRARY_MS, "shape": main["shape"],
+            "smem_load_floor_ms": main["smem_load_floor_ms"],
+            "other_shapes": [dict(v) for k, v in times.items()
+                             if k != ("aho-corasick", 64 * MIB)]}, \
+        {"parity": parity, "rev": rev, "ab": ab, "noise": noise}
+
+
+def phase_router(dev, ids, payloads, snort_auto, ac_text, snort_bytes,
+                 kernel_times, out_dir):
+    """The engine router and the exact fallback through the API: every case
+    of S x workload x batch shape under "device", "host" and "auto", each
+    held to the host oracle (the fit's cases, the held-out ones and the
+    probed one); the Snort call under "auto" and "device"; the k-gram gate;
+    K6 against its plain version and the DfaMatcher calls that take the
+    fallback. ``snort_auto`` is phase 6's
+    median and report of the Snort call under "auto". Returns the launch counts of
+    the main-path run (the routed calls and the fallback calls)."""
+    from regex_fpga_tpu_torch import api, native
+    from regex_fpga_tpu_torch.models import build_aho_corasick
+    from regex_fpga_tpu_torch.ops import router
+
+    rng = np.random.default_rng(SEED + 7)
+    text = np.frombuffer(FRAG * (64 * MIB // len(FRAG) + 1), np.uint8)[:64 * MIB]
+    cfg = api.EngineConfig()
+    check(cfg.scan_backend == "auto", "the default backend is auto")
+    ac_global = build_aho_corasick(WORDS).dfa
+    autos = {  # label: (matcher, traffic)
+        "tokenizer": (api.compile_tokenizer(config=cfg, device=dev), text),
+        "aho-corasick": (api.DfaMatcher(build_aho_corasick(WORDS[:300]).dfa,
+                                        cfg, device=dev), ac_text),
+        "snort exact": (ids._exact, snort_bytes),
+        "snort case-folded": (ids._fold, snort_bytes),
+        "aho-corasick 1,500 keywords": (api.DfaMatcher(ac_global, cfg, device=dev),
+                                        ac_text),
+    }
+    routes = {}
+    for label, (m, _) in autos.items():
+        check(m.config.scan_backend == "auto", f"{label}: auto backend")
+        s, c = m.num_states, m.tables.num_classes
+        routes[label] = router.device_route(s, c)
+    check(routes["aho-corasick 1,500 keywords"] == "global",
+          "the 1,500-keyword automaton takes K2's global route")
+    print(f"router: automata {json.dumps({k: [m.num_states, m.tables.num_classes, routes[k]] for k, (m, _) in autos.items()})}; "
+          f"native walker on {os.cpu_count()} cores", flush=True)
+
+    # the fit's cases (fit_priors), then held-out single streams of sizes
+    # that no fit uses, near the modeled crossover
+    cases = []
+    for label, (m, data) in autos.items():
+        for size in (4096, FIT_SPEC_BYTES, MIB, 64 * MIB):
+            for n in ((1,) if size == FIT_SPEC_BYTES else (1, 4, 64)):
+                chunk = data[:size]
+                cases.append((label, m, f"{n} x {size // n} B" if n > 1 else
+                              f"1 x {size} B", list(chunk.reshape(n, -1)), size,
+                              False))
+        cases.append((label, m, f"Snort batch {len(payloads)} payloads",
+                      [np.frombuffer(p, np.uint8) for p in payloads],
+                      sum(map(len, payloads)), False))
+    for label, (m, data) in autos.items():
+        for size in HELD_OUT_BYTES:
+            cases.append((label, m, f"1 x {size} B", [data[:size]], size, True))
+
+    def run_case(label, m, shape, streams, nbytes, held_out):
+        reps = ROUTER_REPEATS.get(nbytes, 3)
+        want, want_fin = oracle_scan(m, streams)
+        med, spread = {}, {}
+        for backend in ("device", "host"):
+            f = forced(m, backend)
+            r = f.scan(streams)
+            check(np.array_equal(r.counts, want),
+                  f"{label} {shape} {backend}: counts equal the host oracle")
+            check((r.metrics.engine == "dfa-host-native") == (backend == "host"),
+                  f"{label} {shape} {backend}: engine {r.metrics.engine}")
+            ms = wall_ms(lambda: f.scan(streams), reps)
+            med[backend], spread[backend] = float(np.median(ms)), max(ms) / min(ms)
+        fin_dev = device_finals(forced(m, "device"), streams)
+        fin_host = forced(m, "host")._host_scan_counts(streams)[1]
+        check(np.array_equal(fin_dev, want_fin) and np.array_equal(fin_host, want_fin),
+              f"{label} {shape}: finals equal the host oracle")
+        choice = "host" if m._host_backend(len(streams), nbytes) else "device"
+        r = m.scan(streams)
+        check(np.array_equal(r.counts, want), f"{label} {shape} auto: counts")
+        check((r.metrics.engine == "dfa-host-native") == (choice == "host"),
+              f"{label} {shape} auto: engine {r.metrics.engine}, route {choice}")
+        best = min(med.values())
+        s, c = m.num_states, m.tables.num_classes
+        row = {"automaton": label, "S": s, "C": c, "route": routes[label],
+               "shape": shape, "rows": len(streams), "bytes": nbytes,
+               "held_out": held_out,
+               "device_ms": med["device"], "host_ms": med["host"], "auto": choice,
+               "device_spread": spread["device"], "host_spread": spread["host"],
+               "ratio": best / med[choice],
+               "model_device_ms": router.device_seconds(s, c, nbytes, len(streams)) * 1e3,
+               "model_host_ms": router.host_seconds(s, nbytes, len(streams)) * 1e3}
+        print(f"router: {label} S={s} {shape}{' (held out)' if held_out else ''}: "
+              f"device {nbytes / med['device'] / 1e6:.3f} GB/s ({med['device']:.3f} ms), "
+              f"host {nbytes / med['host'] / 1e6:.3f} GB/s ({med['host']:.3f} ms), "
+              f"auto -> {choice}, chosen/best {row['ratio']:.3f}; model "
+              f"{row['model_device_ms']:.3f} / {row['model_host_ms']:.3f} ms; "
+              f"counts and finals equal the host oracle", flush=True)
+        return row
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    rows = [run_case(*case) for case in cases]
+    for held in (False, True):
+        ratios = [r["ratio"] for r in rows if r["held_out"] == held]
+        print(f"router: {len(ratios)} {'held-out' if held else 'fitted'} cases, "
+              f"every engine equal to the host oracle; chosen/best: worst "
+              f"{min(ratios):.3f}, median {np.median(ratios):.3f}", flush=True)
+    print(f"router: cases took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # the probes and the margin on the card: a routed batch of 4 x 64 MiB,
+    # whose modeled ratio lies in the contested band, in a fresh session
+    m = autos["tokenizer"][0]
+    streams = [text] * 4
+    nbytes = 4 * text.size
+    s, c = m.num_states, m.tables.num_classes
+    prior = router.host_seconds(s, nbytes, 4) / router.device_seconds(s, c, nbytes, 4)
+    check(nbytes >= router.PROBE_MIN_WORKLOAD
+          and router.PROBE_BAND[0] <= prior <= router.PROBE_BAND[1],
+          f"the probe case is contested (modeled ratio {prior:.3f})")
+    router.reset_session()
+    t0 = time.perf_counter()
+    m._host_backend(4, nbytes)
+    probe_s = time.perf_counter() - t0
+    check(len(router.session_rates()) == 2, "the contested call probed both engines")
+    probed = router.host_seconds(s, nbytes, 4) / router.device_seconds(s, c, nbytes, 4)
+    rates = router.session_rates()
+    row = run_case("tokenizer", m, f"4 x {text.size} B, probed", streams, nbytes,
+                   True)
+    rows.append(row)
+    print(f"router: probed call: modeled ratio host/device {prior:.3f} on the "
+          f"priors, {probed:.3f} on the probes "
+          f"({json.dumps({k: round(v / 1e9, 4) for k, v in rates.items()})} GB/s, "
+          f"{probe_s:.3f} s of probes); DEVICE_MARGIN {router.DEVICE_MARGIN} -> "
+          f"{row['auto']}, chosen/best {row['ratio']:.3f}", flush=True)
+    router.reset_session()
+
+    # the Snort call as users run it ("auto") beside stage 1 on the card
+    ids_dev = forced(ids, "device")
+    ids_dev._exact, ids_dev._fold = forced(ids._exact, "device"), forced(ids._fold, "device")
+    # phase 6 timed the Snort call as users run it ("auto"); here the same
+    # call with stage 1 forced to the card
+    streams = [np.frombuffer(p, np.uint8) for p in payloads]
+    reports = {"auto": snort_auto[1]}
+    snort = {"auto": {"call_ms": snort_auto[0]}, "device": {}}
+    snort["device"]["call_ms"] = float(np.median(wall_ms(
+        lambda: reports.__setitem__("device", ids_dev.scan(payloads)), 2)))
+    for name, mm in (("auto", ids), ("device", ids_dev)):
+        snort[name]["stage1_ms"] = float(np.median(wall_ms(
+            lambda: mm._prefilter_counts(streams), IDS_REPEATS)))
+    check(alert_rows(reports["auto"]) == alert_rows(reports["device"]),
+          "Snort alerts equal under auto and device")
+    print(f"router: Snort call over {len(payloads)} payloads: auto "
+          f"{snort['auto']['call_ms']:.2f} ms (phase 6, median of {IDS_REPEATS}; "
+          f"stage 1 {snort['auto']['stage1_ms']:.2f}), device "
+          f"{snort['device']['call_ms']:.2f} ms (median of 2; stage 1 "
+          f"{snort['device']['stage1_ms']:.2f}; stage 1 medians of "
+          f"{IDS_REPEATS}); alerts equal", flush=True)
+    launches = launch_counters()  # the routed calls' launches
+
+    # the exact fallback: K6 against plain, then the DfaMatcher calls
+    k6, fb = phase_fallback(dev, autos["aho-corasick"][0].tables, rng)
+    kernel_times["dfa_block_fns"] = k6
+    pcfg = api.EngineConfig(scan_backend="device")
+    fb_calls = {
+        "parity 64 MiB": (api.DfaMatcher(fb["parity"], pcfg, device=dev), fb["noise"]),
+        "reversed (aa)*b 16 MiB": (api.DfaMatcher(fb["rev"], pcfg, device=dev),
+                                   fb["ab"][:16 * MIB]),
+    }
+    before = launch_counters()
+    for name, (m, data) in fb_calls.items():
+        r = m.scan(data)
+        ms = wall_ms(lambda: m.scan(data), 3)
+        want, _ = oracle_scan(m, [data])
+        check(not r.metrics.converged, f"{name}: the fast engine does not converge")
+        check(np.array_equal(r.counts, want), f"{name}: fallback counts equal the oracle")
+        print(f"router: DfaMatcher.scan {name} through the exact fallback: "
+              f"{data.size / np.median(ms) / 1e6:.3f} GB/s (median of 3: "
+              f"{np.median(ms):.2f} ms), converged=False, counts equal the host "
+              f"oracle", flush=True)
+    after = launch_counters()
+    used = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    print(f"router: fallback calls launched {json.dumps(used)}", flush=True)
+    check(used.get("dfa_block_fns", 0) > 0 and used.get("dfa_chain", 0) > 0,
+          "the fallback ran K6 and K1")
+    # the main path's launches: the routed calls and the fallback calls, not
+    # the launches that held K6 to its plain version
+    launches = {k: launches[k] + used.get(k, 0) for k in launches}
+
+    gate = phase_gate(dev, text, [(autos[k][0].tables, autos[k][1]) for k in (
+        "aho-corasick", "aho-corasick 1,500 keywords")])
+    fit = fit_priors([r for r in rows if not r["held_out"]], kernel_times)
+    fit["PROBE_MIN_WORKLOAD"] = probe_s * fit["HOST_MULTI_BPS"]
+    print(f"router: priors fitted from this run {json.dumps(fit)}", flush=True)
+    if out_dir:
+        with open(os.path.join(out_dir, "router.json"), "w") as f:
+            json.dump({"cases": rows, "snort": snort, "session": rates,
+                       "probe_s": probe_s, "gate": gate,
+                       "fit": fit}, f, indent=1)
+    check(launches["dfa_chain_counts"] > 0 and launches["dfa_block_fns"] > 0,
+          "K2 and K6 launched on the router path")
+    return launches
+
+
+def fit_priors(rows, kernel_times) -> dict:
+    """The router's priors as this run measures them (ops/router.py): the
+    fixed costs from the 4 KiB single-stream calls; the device's copy rate
+    from the 64 MiB single-stream calls less K2's time on their route, and
+    from the 64 MiB batches; the host's rates from the 64 MiB calls (on all
+    cores) and the 1 MiB single-stream ones (one core), the speculative
+    walk's fixed cost from the 256 KiB single-stream ones; the cost of a
+    histogram entry from the Snort batch."""
+    from regex_fpga_tpu_torch.ops import router
+
+    def pick(shape):
+        return [r for r in rows if r["shape"] == shape]
+
+    def med(xs):
+        return float(np.median(xs))
+
+    k2_ms = {"shared uint32": kernel_times["dfa_chain_counts"]["ms"],
+             "shared uint16": kernel_times["extra_ms"][
+                 "dfa_chain_counts[aho-corasick S=836]"],
+             "global": kernel_times["extra_ms"][
+                 "dfa_chain_counts[random S=1024, global table]"]}
+    route_bps = {k: 64 * MIB / (v / 1e3) for k, v in k2_ms.items()}
+    one4k = pick("1 x 4096 B")
+    dev_call = med([r["device_ms"] for r in one4k]) / 1e3
+    host_call = med([r["host_ms"] for r in one4k]) / 1e3
+    big = pick(f"1 x {64 * MIB} B")
+    copy = med([r["bytes"] / (r["device_ms"] / 1e3 - dev_call
+                              - r["bytes"] / route_bps[r["route"]]) for r in big])
+    batches = pick(f"4 x {16 * MIB} B") + pick(f"64 x {MIB} B")
+    batch_copy = med([r["bytes"] / (r["device_ms"] / 1e3 - dev_call
+                                    - r["bytes"] / route_bps[r["route"]])
+                      for r in batches])
+    host_single = med([r["bytes"] / (r["host_ms"] / 1e3) for r in big])
+    host_multi = med([r["bytes"] / (r["host_ms"] / 1e3) for r in batches])
+    host_core = med([r["bytes"] / (r["host_ms"] / 1e3 - host_call)
+                     for r in pick(f"1 x {MIB} B")])
+    # what the speculative walk of one stream costs beyond its bytes
+    host_spec = med([r["host_ms"] / 1e3 - r["bytes"] / host_core
+                     for r in pick(f"1 x {FIT_SPEC_BYTES} B")])
+    # per row and per histogram entry: the Snort batch at the least and the
+    # most states, less the per-byte terms
+    snort = sorted(pick(f"Snort batch {rows[-1]['rows']} payloads"),
+                   key=lambda r: r["S"])
+    per_row = {}
+    for e, per_byte, call in (
+            ("device", lambda r: 1 / batch_copy + 1 / route_bps[r["route"]],
+             dev_call),
+            ("host", lambda r: 1 / host_core, host_call)):
+        y = [(r[f"{e}_ms"] / 1e3 - call - r["bytes"] * per_byte(r)) / r["rows"]
+             for r in (snort[0], snort[-1])]
+        slope = (y[1] - y[0]) / (snort[-1]["S"] - snort[0]["S"])
+        per_row[e] = (y[0] - slope * snort[0]["S"], slope)
+    fit = {"DEVICE_CALL_S": dev_call, "DEVICE_COPY_BPS": copy,
+           "DEVICE_BATCH_COPY_BPS": batch_copy, "DEVICE_ROUTE_BPS": route_bps,
+           "DEVICE_ROW_S": per_row["device"][0],
+           "DEVICE_ROW_STATE_S": per_row["device"][1], "HOST_CALL_S": host_call,
+           "HOST_SINGLE_BPS": host_single, "HOST_MULTI_BPS": host_multi,
+           "HOST_CORE_BPS": host_core, "HOST_SPEC_CALL_S": host_spec,
+           "HOST_ROW_S": per_row["host"][0],
+           "HOST_ROW_STATE_S": per_row["host"][1]}
+    # the model's error on this run's cases, and the run-to-run spread
+    err = [max(r[f"model_{e}_ms"] / r[f"{e}_ms"], r[f"{e}_ms"] / r[f"model_{e}_ms"])
+           for r in rows for e in ("device", "host")]
+    fit["model_error_median"], fit["model_error_max"] = med(err), max(err)
+    fit["PROBE_BAND"] = [1 / float(np.percentile(err, 90)),
+                         float(np.percentile(err, 90))]
+    fit["DEVICE_MARGIN"] = med([r[f"{e}_spread"] for r in rows
+                                for e in ("device", "host")])
+    fit["committed"] = {k: getattr(router, k) for k in fit if hasattr(router, k)}
+    return fit
+
+
 # ------------------------------------------------------------ --profile
 
 
@@ -1524,7 +2040,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     phase_device(args.out)
+    done("phase 1 (device, builds)")
 
     from regex_fpga_tpu_torch.models import (LazyDfa, build_aho_corasick,
                                              build_tokenizer_dfa, gen_l7_traffic,
@@ -1537,6 +2060,7 @@ def main(argv=None) -> int:
     ac = build_aho_corasick(WORDS[:300]).dfa
     ac_tables = build_dfa_tables(ac.table, ac.accept, device=dev)
     kernel_times = phase_kernels(dev, tok_tables, int(tok.start), ac_tables)
+    done("phase 2 (kernels)")
 
     t0 = time.perf_counter()
     snort_aut, l7_aut = snort_corpus_nfa(), l7_corpus_nfa()
@@ -1551,16 +2075,27 @@ def main(argv=None) -> int:
     kernel_times["nfa_active_scan"] = phase_nfa_kernels(
         dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes, kernel_times)
 
+    done("phase 2 (NFA kernels)")
     dfa_launches, calls, ac_text = phase_main_path(dev)
+    done("phase 3 (DFA main path)")
     nfa_launches, nfa_calls = phase_nfa_path(dev, snort_aut, snort_bytes,
                                              l7_aut, l7_bytes)
+    done("phase 4 (NFA main path)")
     span_launches, span_calls = phase_spans(dev, snort_bytes, l7_bytes, ac_text)
-    ids_launches, ids_calls = phase_ids(dev, snort_bytes, l7_bytes, kernel_times)
+    done("phase 5 (spans)")
+    ids_launches, ids_calls, ids, payloads, snort_auto = phase_ids(
+        dev, snort_bytes, l7_bytes, kernel_times)
+    done("phase 6 (IDS front door)")
+    router_launches = phase_router(dev, ids, payloads, snort_auto, ac_text,
+                                   snort_bytes, kernel_times, args.out)
+    done("phase 7 (router, exact fallback)")
     launches = {k: dfa_launches[k] + nfa_launches[k] + span_launches[k]
-                + ids_launches[k] for k in KERNELS}
+                + ids_launches[k] + router_launches[k] for k in KERNELS}
     if args.profile:
         phase_profile(dev, calls + nfa_calls + span_calls + ids_calls, args.out)
 
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} launched on the main path")
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": launches[name], **kernel_times[name]}

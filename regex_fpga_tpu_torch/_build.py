@@ -94,12 +94,15 @@ def library() -> ctypes.CDLL:
     ]
     lib.kgram_chain_route.argtypes = [i, i, i, i, i, i]
     lib.smem_chase.argtypes = [i, i, i, p, p]
+    lib.dfa_block_fns.argtypes = [p, p, i, i, i, i, p, p]
+    lib.dfa_block_fns_route.argtypes = [i, i, i, i]
     lib.nfa_active_scan.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
     lib.nfa_active_route.argtypes = [i, i, i, i, i]
     for fn in (lib.dfa_chain, lib.dfa_chain_counts, lib.dfa_chain_route,
                lib.dfa_chain_lanes_per_cta, lib.kgram_chain,
                lib.kgram_chain_route, lib.nfa_active_scan,
-               lib.nfa_active_route, lib.smem_chase):
+               lib.nfa_active_route, lib.smem_chase, lib.dfa_block_fns,
+               lib.dfa_block_fns_route):
         fn.restype = i
     return lib
 

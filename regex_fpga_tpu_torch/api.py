@@ -40,9 +40,11 @@ Snort matcher prefilters every payload of a batch on the device and
 verifies the candidate rules on the host. Results equal the JAX package's
 bit for bit.
 
-Not in this package yet: the engine router and the host DFA walker.
-``scan_backend="auto"`` runs the device engines (exact: the host walker
-gives the same histograms), and ``"host"`` raises ``NotImplementedError``.
+Counting scans of a ``DfaMatcher`` (``scan``, ``count`` and what is built
+on them) go through the engine router (``ops/router.py``):
+``scan_backend="auto"`` prices the device engines and the native host
+walker on the H100's measured priors and takes the faster, ``"device"`` and
+``"host"`` force one. Both give the same histograms, bit for bit.
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ from .ops.kgram import (
 )
 from .ops.lazy_scan import lazy_nfa_scan
 from .ops.nfa_engine import initial_active, nfa_scan_streams
+from .ops.router import choose_scan_backend
 from .ops.tables import (
     DfaTables,
     NfaCsr,
@@ -150,8 +153,8 @@ __all__ = [
     "compile_tokenizer",
 ]
 
-#: The port's default engine settings: the JAX defaults. Until the engine
-#: router is ported, ``scan_backend="auto"`` runs every scan on the device.
+#: The port's default engine settings: the JAX defaults
+#: (``scan_backend="auto"``: the engine router chooses).
 DEFAULT_CONFIG = EngineConfig()
 
 
@@ -335,15 +338,6 @@ class DfaMatcher:
 
     def _setup(self, tables: DfaTables, accept_eof, start: int,
                config: EngineConfig, device) -> None:
-        # "auto" runs the device engines until the router is ported: exact,
-        # since the host walker gives the same histograms as the device
-        if config.scan_backend == "host":
-            raise NotImplementedError(
-                "scan_backend='host' needs the engine router and the host "
-                "DFA walker, which the torch port does not have yet "
-                "(ROADMAP.md, 'Modules still to port', the router item); "
-                "use 'auto' or 'device'"
-            )
         self.config = config
         self.device = resolve_device(device)
         self.tables = tables.to(self.device)
@@ -388,6 +382,80 @@ class DfaMatcher:
         return shrink_blocks(n, self.config.num_blocks,
                              self.config.min_block_bytes)
 
+    # --------------------------------------------------------- host backend
+
+    def _host_backend(self, n_streams: int, workload_bytes: int = 0) -> bool:
+        """True when the engine router (``ops/router.py``) sends this
+        counting scan to the native host walker: forced by
+        ``scan_backend="host"`` (which raises without the walker), or chosen
+        by the H100's cost model under ``"auto"``; ``workload_bytes`` lets
+        the router probe both engines when enough work is at stake."""
+        return choose_scan_backend(
+            self.tables.num_states, self.tables.num_classes, n_streams,
+            self.config.scan_backend, tables=self.tables,
+            workload_bytes=workload_bytes,
+            chunk_bytes=self.config.chunk_bytes,
+            num_blocks=self.config.num_blocks,
+            min_block_bytes=self.config.min_block_bytes,
+        ) == "host"
+
+    def _host_tables(self):
+        """Host copies of the tables, cached: the walker's int16 table is
+        memoized on the identity of this array (``native._as_table16``)."""
+        if not hasattr(self, "_host_np_cache"):
+            self._host_np_cache = (
+                self.tables.table.cpu().numpy(),
+                self.tables.class_of.cpu().numpy(),
+                self.tables.accept.cpu().numpy(),
+            )
+        return self._host_np_cache
+
+    def _host_scan_counts(self, streams):
+        """(per-stream per-state counts, final states) from the native
+        walker, equal to the device scan's (accept counted before each byte,
+        the last byte's accept dropped; the caller adds the end-of-stream
+        match). Fewer than 4 streams cannot fill the walker's interleave, so
+        each is cut into speculative segments (``dfa_scan_speculative``)."""
+        tab, cls, acc = self._host_tables()
+        if len(streams) < 4:
+            counts = np.zeros((len(streams), self.num_states), np.int64)
+            finals = np.zeros(len(streams), np.int32)
+            for i, st in enumerate(streams):
+                counts[i], finals[i] = native.dfa_scan_speculative(
+                    tab, cls, acc, st, start=self.start)
+            return counts, finals
+        return native.dfa_scan_multi(tab, cls, acc, streams, starts=self.start)
+
+    def _scan_host(self, streams, collect_positions: bool):
+        """``scan`` on the host walker: counts (n, S), positions (with
+        ``collect_positions``: the walk's match mask), the end-of-stream
+        match included."""
+        positions: list = []
+        if collect_positions:
+            counts = np.zeros((len(streams), self.num_states), dtype=np.int64)
+            finals = np.zeros(len(streams), dtype=np.int64)
+            tab, cls, acc = self._host_tables()
+            for i, stream in enumerate(streams):
+                counts[i], mask, finals[i] = native.dfa_scan(
+                    tab, cls, acc, stream, start=self.start)
+                positions.append(np.nonzero(mask)[0])
+        else:
+            counts, finals = self._host_scan_counts(streams)
+        for i in self._final_matches(streams, finals):
+            counts[i, finals[i]] += 1
+            if collect_positions:
+                positions[i] = np.concatenate([positions[i],
+                                               [len(streams[i])]])
+        return counts, positions
+
+    def _final_matches(self, streams, finals) -> np.ndarray:
+        """The streams whose end-of-stream match counts: non-empty, ending
+        in a state that accepts at the end (with ``include_final_match``)."""
+        if not self.include_final_match:
+            return np.zeros(0, np.int64)
+        lens = np.fromiter((len(s_) for s_ in streams), np.int64, len(streams))
+        return np.nonzero((lens > 0) & self._accept_eof[finals])[0]
+
     # ---------------------------------------------------------------- scan
 
     def scan(self, data, collect_positions: bool = False) -> ScanReport:
@@ -396,7 +464,12 @@ class DfaMatcher:
         positions: list = []
         iters = 0
         converged = True
-        if (not collect_positions and len(streams) > 1
+        if len(streams) and self._host_backend(
+                len(streams), sum(len(s_) for s_ in streams)):
+            with Timer() as t:
+                counts, positions = self._scan_host(streams, collect_positions)
+            engine = "dfa-host-native"
+        elif (not collect_positions and len(streams) > 1
                 and len({len(s_) for s_ in streams}) == 1
                 and len(streams[0]) > 0):
             # equal-length batch: all streams as extra chain lanes in one pass
@@ -480,8 +553,14 @@ class DfaMatcher:
 
         Uses the k-gram engine (4 bytes per step, exact totals) when the
         composed class count stays small, with any tail shorter than one
-        step finished by the serial scan from the k-gram carry state."""
+        step finished by the serial scan from the k-gram carry state. Where
+        the k-gram engine is off (more than ``KGRAM_MAX_STATES`` states),
+        the engine router may send the count to the host walker."""
         streams = _as_streams(data)
+        if streams and self._kgram() is None and self._host_backend(
+                len(streams), sum(len(s_) for s_ in streams)):
+            counts, finals = self._host_scan_counts(streams)
+            return int(counts.sum()) + len(self._final_matches(streams, finals))
         total = 0
         for stream in streams:
             if len(stream) == 0:

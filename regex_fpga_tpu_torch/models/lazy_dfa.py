@@ -178,6 +178,115 @@ class LazyDfa:
         counts += self.accept_counts(visits)
         return counts, sid, n
 
+    def host_scan_multi(
+        self,
+        stream: np.ndarray,
+        start_id: int | None = None,
+        counts: np.ndarray | None = None,
+        chunks: int = 32,
+        overlap: int = 192,
+        threads: int = 2,
+    ) -> tuple[np.ndarray, int, int]:
+        """Speculative multi-cursor host scan, with ``host_scan``'s contract.
+
+        The serial walk is bound by one dependent table load per byte;
+        walking ``chunks`` independent cursors round-robin overlaps their
+        cache misses, and ``threads`` ctypes calls run side by side (the GIL
+        is released during the native call). Exact by the device engines'
+        induction: cursor c first replays the ``overlap`` bytes before its
+        chunk from the hub start state (the guess); after the main walk,
+        ``finals[c] == entries[c+1]`` at every seam proves that every cursor
+        walked from its true entry. On any seam mismatch the whole scan
+        falls back to the serial ``host_scan`` (counts are merged only on
+        success, so the fallback starts from clean accumulators).
+        """
+        data = np.asarray(stream, dtype=np.uint8)
+        n = len(data)
+        sid0 = self.start if start_id is None else int(start_id)
+        if counts is None:
+            counts = np.zeros(self.aut.num_states, dtype=np.int64)
+        chunks = min(chunks, 512)  # the native walker's cursor cap per call
+        if n < chunks * max(4 * overlap, 2048):
+            return self.host_scan(data, sid0, counts)
+
+        import threading as _threading
+
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        data = np.ascontiguousarray(data)
+        lut_ptr = self._class_u8.ctypes.data_as(u8p)
+        data_ptr = data.ctypes.data_as(u8p)
+        bounds = np.linspace(0, n, chunks + 1).astype(np.int64)
+
+        def drive(pos, end, sids, visits_list, count):
+            """Walk all cursors to their ends, expanding blocked states
+            between rounds. ``visits_list`` holds one buffer per thread
+            group (ignored when count == 0)."""
+            groups = np.array_split(np.arange(len(pos)), max(1, threads))
+            while True:
+                def run(g, vi):
+                    if len(g) == 0:
+                        return
+                    self._native.lazy_walk_multi(
+                        self._table.ctypes.data_as(i32p),
+                        self.num_classes,
+                        self._expanded.ctypes.data_as(u8p),
+                        lut_ptr,
+                        self._accepting.ctypes.data_as(u8p),
+                        data_ptr,
+                        pos[g[0]:].ctypes.data_as(i64p),
+                        end[g[0]:].ctypes.data_as(i64p),
+                        sids[g[0]:].ctypes.data_as(i32p),
+                        len(g),
+                        vi.ctypes.data_as(i64p),
+                        count,
+                        0,  # one histogram shared by the group's cursors
+                    )
+
+                ts = []
+                for gi, g in enumerate(groups):
+                    t = _threading.Thread(
+                        target=run, args=(g, visits_list[gi % len(visits_list)]))
+                    t.start()
+                    ts.append(t)
+                for t in ts:
+                    t.join()
+                blocked = np.nonzero(pos < end)[0]
+                if len(blocked) == 0:
+                    return
+                for c in blocked:
+                    self.expand(int(sids[c]))
+                for gi in range(len(visits_list)):
+                    if len(visits_list[gi]) < self._cap:
+                        visits_list[gi] = np.concatenate([
+                            visits_list[gi],
+                            np.zeros(self._cap - len(visits_list[gi]), np.int64),
+                        ])
+
+        # prescan: speculative entries for chunks 1..chunks-1
+        pre_pos = np.maximum(bounds[1:-1] - overlap, 0).astype(np.int64)
+        pre_end = bounds[1:-1].copy()
+        pre_sids = np.full(chunks - 1, self.start, dtype=np.int32)
+        drive(pre_pos, pre_end, pre_sids, [np.zeros(1, np.int64)], 0)
+        entries = np.concatenate([[sid0], pre_sids]).astype(np.int32)
+
+        # the counted walk
+        pos = bounds[:-1].copy()
+        end = bounds[1:].copy()
+        sids = entries.copy()
+        visits_list = [np.zeros(self._cap, np.int64)
+                       for _ in range(max(1, threads))]
+        drive(pos, end, sids, visits_list, 1)
+
+        if not np.array_equal(sids[:-1], entries[1:]):
+            return self.host_scan(data, sid0, counts)  # a seam did not close
+        visits = np.zeros(self._cap, np.int64)
+        for v in visits_list:
+            visits[: len(v)] += v
+        counts += self.accept_counts(visits)
+        return counts, int(sids[-1]), n
+
     def host_scan_batch(
         self,
         streams,

@@ -1,14 +1,19 @@
 """Exact DFA scans that need no convergence: the fallback of the fast engine.
 
-The counterpart of ``regex_fpga_tpu/ops/dfa_engine.py``, in plain torch. The
-blocked scan composes transition functions: pass 1 steps all S start states
-through each block, giving the block's function f: S -> S; an exclusive
-prefix composition (log depth, ``torch.gather``) gives every block its true
-entry state; pass 2 rescans each block from it. It is exact for any
-automaton, including those the fast engine's Jacobi seams never settle
-(parity counters), at S times the work of a chain pass. It has no Hopper
-kernel yet: ``DfaMatcher`` reaches it only when the fast engine reports
-non-convergence.
+The counterpart of ``regex_fpga_tpu/ops/dfa_engine.py`` (K6). The blocked
+scan composes transition functions: pass 1 steps all S start states through
+each block, giving the block's function f: S -> S (``dfa_block_fns``, the
+Hopper kernel ``csrc/dfa_block_fns.cu`` on the card); an exclusive prefix
+composition (log depth, ``torch.gather``) gives every block its true entry
+state; pass 2 rescans each block from it (K1's full mode, ``dfa_chain``). It
+is exact for any automaton, including those the fast engine's Jacobi seams
+never settle (parity counters), at S times the work of a chain pass.
+``DfaMatcher`` reaches it only when the fast engine reports non-convergence.
+
+The (NB, S) block functions grow with S (219 MB at 65,536 blocks and
+S = 836), so the blocks go through in groups of at most ``FN_GROUP_BYTES``
+of functions: the first block of a group is entered in the final state of
+the group before it, which keeps the result exact for any S.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .hopper_dfa import dfa_block_fns, dfa_chain
 from .tables import DfaTables
 
 __all__ = [
@@ -25,9 +31,13 @@ __all__ = [
     "block_entry_states",
     "block_transition_functions",
     "compose",
+    "dfa_match_positions",
     "dfa_scan_blocked",
     "dfa_scan_serial",
 ]
+
+#: the most bytes of block functions that one group of blocks holds
+FN_GROUP_BYTES = 64 << 20
 
 
 class DfaScanResult(NamedTuple):
@@ -82,33 +92,29 @@ def dfa_scan_serial(tables: DfaTables, stream, start: int = 0) -> DfaScanResult:
 def block_transition_functions(tables: DfaTables,
                                classes: torch.Tensor) -> torch.Tensor:
     """Pass 1. ``classes``: (NB, B) byte-class ids. Returns (NB, S) int32
-    block functions: f[n, s] = state after block n when entered in state s."""
-    nb = classes.shape[0]
-    s = tables.num_states
-    flat = tables.table.reshape(-1)
-    states = torch.arange(s, dtype=torch.int32, device=classes.device)
-    states = states.expand(nb, s)
-    for t in range(classes.shape[1]):
-        states = torch.take(flat, classes[:, t:t + 1].long() * s + states)
-    return states
+    block functions: f[n, s] = state after block n when entered in state s
+    (K6, ``dfa_block_fns``)."""
+    return dfa_block_fns(tables.table, classes)
 
 
 def block_entry_states(block_fns: torch.Tensor,
-                       start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                       start=0) -> tuple[torch.Tensor, torch.Tensor]:
     """Combine. Returns (entry_states (NB,), final_state ()).
 
     entry_states[n] is the state at the start of block n when the stream is
-    entered at ``start``: an exclusive prefix composition of the block
-    functions, computed by log-depth doubling."""
+    entered at ``start`` (an int, or a one-element tensor on the functions'
+    device): an exclusive prefix composition of the block functions,
+    computed by log-depth doubling."""
     prefix = block_fns
     n = prefix.shape[0]
     d = 1
     while d < n:
         prefix = torch.cat([prefix[:d], compose(prefix[:-d], prefix[d:])])
         d *= 2
-    first = torch.full((1,), start, dtype=torch.int32, device=block_fns.device)
-    entry = torch.cat([first, prefix[:-1, start].to(torch.int32)])
-    return entry, prefix[-1, start].to(torch.int32)
+    first = torch.as_tensor(start, dtype=torch.int32,
+                            device=block_fns.device).reshape(1)
+    col = torch.index_select(prefix, 1, first).reshape(-1).to(torch.int32)
+    return torch.cat([first, col[:-1]]), col[-1]
 
 
 def dfa_scan_blocked(
@@ -118,31 +124,46 @@ def dfa_scan_blocked(
     start: int = 0,
 ) -> DfaScanResult:
     """Block-parallel scan with exact reference match semantics; ``stream``
-    is (L,) bytes with L a multiple of ``block_size``."""
+    is (L,) bytes with L a multiple of ``block_size``. The blocks go
+    through in groups of as many as ``FN_GROUP_BYTES`` of block functions
+    hold, each entered in the final state of the one before."""
     l = stream.shape[0]
     if l % block_size:
         raise ValueError("pad stream to a multiple of block_size")
     nb = l // block_size
     s = tables.num_states
-    classes = torch.take(tables.class_of, stream.long()).reshape(nb, block_size)
-
-    entry, final_state = block_entry_states(
-        block_transition_functions(tables, classes), start
-    )
-    # pass 2: exact rescan of each block from its true entry state
-    flat = tables.table.reshape(-1)
-    visited = torch.empty((nb, block_size), dtype=torch.int32,
-                          device=stream.device)
-    state = entry
-    for t in range(block_size):
-        visited[:, t] = state
-        state = torch.take(flat, classes[:, t].long() * s + state)
-    visited = visited.reshape(-1)
-    is_match = torch.take(tables.accept, visited.long())
-    counts = torch.bincount(visited[is_match].long(), minlength=s)[:s]
+    # class ids fit one byte (C <= 256)
+    classes = torch.take(tables.class_of.to(torch.uint8),
+                         stream.long()).reshape(nb, block_size)
+    group = max(1, FN_GROUP_BYTES // (4 * s))
+    counts = torch.zeros(s, dtype=torch.int64, device=stream.device)
+    masks, states = [], []
+    cur = torch.tensor([start], dtype=torch.int32, device=stream.device)
+    for g0 in range(0, nb, group):
+        cls_g = classes[g0 : g0 + group]
+        entry, cur = block_entry_states(block_transition_functions(tables, cls_g),
+                                        cur)
+        # pass 2: exact rescan of each block from its true entry state (K1's
+        # full mode over the block-major class ids: its outputs are stored
+        # block-major, so their transposes flatten to stream order)
+        _, visited, acc = dfa_chain(tables.table, tables.accept, cls_g.T,
+                                    entry, mode="full")
+        visited, acc = visited.T.reshape(-1), acc.T.reshape(-1)
+        counts += torch.bincount(visited[acc].long(), minlength=s)[:s]
+        masks.append(acc)
+        states.append(visited)
+    empty = torch.zeros(0, dtype=torch.int32, device=stream.device)
     return DfaScanResult(
         counts=counts.to(torch.int32),
-        final_state=final_state,
-        match_mask=is_match,
-        states=visited,
+        final_state=cur.reshape(()),
+        match_mask=torch.cat(masks) if masks else empty.bool(),
+        states=torch.cat(states) if states else empty,
     )
+
+
+def dfa_match_positions(result: DfaScanResult) -> torch.Tensor:
+    """Positions (0-based byte offsets) at which a match fired, int64. With
+    the reference timing, a match at position p was entered by byte p-1."""
+    if result.match_mask is None:
+        raise ValueError("the scan kept no match mask")
+    return torch.nonzero(result.match_mask).reshape(-1)

@@ -1,4 +1,4 @@
-"""K1 and K2: the k=1 DFA chain pass on Hopper, with their plain versions.
+"""K1, K2 and K6: the DFA chain passes on Hopper, with their plain versions.
 
 ``dfa_chain`` (K1) runs NB independent chains, ``state <- T[class, state]``
 per step, and returns the final states and, by mode, the state before each
@@ -6,6 +6,10 @@ step and its accept bit. ``dfa_chain_counts`` (K2) runs the same chains and
 returns the final states and the accept-visit histogram, per state or per
 stream and state. The kernels are ``csrc/dfa_chain.cu``; they replace the TPU
 kernels ``regex_fpga_tpu/ops/pallas_dfa.py::_kernel`` and ``::_counts_kernel``.
+``dfa_block_fns`` (K6, pass 1 of the exact fallback) runs every block of a
+stream from every start state and returns the blocks' transition functions;
+its kernel is ``csrc/dfa_block_fns.cu``, and it replaces the XLA loop
+``regex_fpga_tpu/ops/dfa_engine.py::block_transition_functions``.
 
 Layout: ``cls_seq`` is (B, NB), one column per lane, as in the JAX engines.
 Its storage may be either order: a ``blocks.T`` view of a block-major (NB, B)
@@ -26,6 +30,9 @@ from .. import _build
 
 __all__ = [
     "LAUNCHES",
+    "dfa_block_fns",
+    "dfa_block_fns_plain",
+    "dfa_block_fns_route",
     "dfa_chain",
     "dfa_chain_counts",
     "dfa_chain_plain",
@@ -34,7 +41,7 @@ __all__ = [
 ]
 
 #: Kernel launches since the last reset, one count per kernel.
-LAUNCHES = {"dfa_chain": 0, "dfa_chain_counts": 0}
+LAUNCHES = {"dfa_chain": 0, "dfa_chain_counts": 0, "dfa_block_fns": 0}
 
 MODES = ("finals", "full", "mask")
 _CLASS_DTYPES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
@@ -174,7 +181,66 @@ def dfa_chain_route(mode: str, num_classes: int, num_states: int,
             "lanes_per_cta": lib.dfa_chain_lanes_per_cta()}
 
 
+def dfa_block_fns(table, classes):
+    """K6, pass 1 of the exact fallback. ``classes`` is (NB, B): the class
+    ids of NB blocks of B bytes. Returns (NB, S) int32: f[n, s] is the state
+    after block n when it is entered in state s. A class outside [0, C)
+    steps to state 0, as in ``dfa_chain``; a table entry outside [0, S)
+    raises. On the card the class ids must be uint8 (C <= 256 always)."""
+    if classes.device != table.device:
+        raise ValueError(f"table is on {table.device}, classes on {classes.device}")
+    if classes.dim() != 2 or classes.dtype not in _CLASS_DTYPES:
+        raise TypeError("classes must be a (NB, B) uint8, int16 or int32 tensor")
+    if table.dim() != 2 or table.dtype != torch.int32:
+        raise TypeError("table must be a (C, S) int32 tensor")
+    c, s = table.shape
+    nb, b = classes.shape
+    if c * s >= 1 << 31 or nb * s >= 1 << 31:
+        raise ValueError("table and output must each stay below 2^31 entries")
+    if bool(((table < 0) | (table >= s)).any()):
+        raise ValueError("table holds state ids outside [0, S): corrupt table")
+    if classes.device.type == "cpu":
+        return dfa_block_fns_plain(table, classes)
+    _require_cuda(classes)
+    if classes.dtype != torch.uint8 or c > 256:
+        raise TypeError("the kernel takes uint8 class ids of at most 256 classes")
+    classes, table = classes.contiguous(), table.contiguous()
+    out = torch.empty((nb, s), dtype=torch.int32, device=classes.device)
+    LAUNCHES["dfa_block_fns"] += 1
+    with torch.cuda.device(classes.device):
+        rc = _build.library().dfa_block_fns(
+            classes.data_ptr(), table.data_ptr(), c, s, nb, b, out.data_ptr(),
+            _stream(classes.device))
+    _build.check(rc, "dfa_block_fns")
+    return out
+
+
+def dfa_block_fns_route(num_classes: int, num_states: int, num_blocks: int,
+                        block_size: int = 1024) -> dict:
+    """Where K6 keeps its table for these shapes on the current card:
+    {"table": "shared uint16" | "shared uint32" | "global", "group": blocks
+    whose class ids a CTA stages per round}."""
+    r = _build.library().dfa_block_fns_route(num_classes, num_states,
+                                             num_blocks, block_size)
+    return {"table": ("global", "shared uint32", "shared uint16")[r & 3],
+            "group": r >> 2}
+
+
 # --------------------------------------------------------------- plain versions
+
+
+def dfa_block_fns_plain(table, classes):
+    """Plain-torch K6 pass 1: all S start states of every block as one
+    (NB, S) tensor, one gather per byte."""
+    nb, b = classes.shape
+    c_dim, s_dim = table.shape
+    flat = table.reshape(-1)
+    states = torch.arange(s_dim, dtype=torch.int32, device=classes.device)
+    states = states.expand(nb, s_dim)
+    for t in range(b):
+        states = _step(flat, c_dim, s_dim, states,
+                       classes[:, t:t + 1].long()).to(torch.int32)
+    return states
 
 
 def _step(flat, c_dim: int, s_dim: int, state, cls):

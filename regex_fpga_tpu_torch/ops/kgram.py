@@ -39,20 +39,87 @@ from .tables import DfaTables
 
 __all__ = [
     "KGRAM_MAX_STATES",
+    "KGRAM_SWEEP",
     "KgramScanResult",
     "KgramTables",
     "build_kgram",
+    "choose_kgram_level",
+    "choose_scan_level",
     "dfa_scan_kgram",
     "kgram_maps",
     "kgram_pass_full",
+    "kgram_step_cost",
     "map_kgram_classes",
     "pack_ta",
 ]
 
-#: Largest automaton that ``DfaMatcher.count`` sends to the k-gram engine.
-#: The value is the JAX package's crossover, kept so that both packages
-#: choose the same engine; the H100's own crossover is not measured yet.
+#: Largest automaton that ``DfaMatcher.count`` sends to the k-gram engine
+#: (K3 over raw text, k = 4) instead of the k=1 counting pass (K2): the
+#: H100's crossover in ``KGRAM_SWEEP`` (levels 0 and 2): K3 wins at S = 23
+#: and 32 and loses at 67 and 107, as in every sweep run on the card so far
+#: (PERF.md section 6). The JAX package's TPU crossover is the same number.
 KGRAM_MAX_STATES = 32
+
+#: The gate sweep of chip_smoke.py (phase 7, ``phase_gate``): the device
+#: time of the counting pass over one 64 MiB chunk of text at 65,536 lanes,
+#: by level (0: K2, one byte a step; lv >= 1: K3 at k = 2^lv bytes a step),
+#: as rows (S, C_l, the kernel's table route, ms). K3 runs over raw text
+#: where the kernel takes the table with its maps; elsewhere the row is the
+#: level's map of the bytes to class ids (``map_classes``) and K3 over them.
+#: K2 takes the byte classes that every device scan maps (0.300 ms, not in
+#: its rows). NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md
+#: section 6 names the run). The sweep has no level 3 at S = 836 and 4,008
+#: and no level 2 at 4,008: their composed classes exceed ``build_kgram``'s
+#: limits.
+KGRAM_SWEEP = {
+    0: ((23, 10, "shared uint32", 0.0742), (32, 17, "shared uint32", 0.0770),
+        (67, 28, "shared uint32", 0.0728), (107, 31, "shared uint32", 0.0719),
+        (836, 36, "shared uint16", 0.1617), (4008, 36, "global", 0.1588)),
+    1: ((23, 49, "shared uint16", 0.0745), (32, 43, "shared uint16", 0.0745),
+        (67, 80, "shared uint16", 0.0777), (107, 94, "shared uint16", 0.0750),
+        (836, 175, "global", 0.9736), (4008, 217, "global", 0.9735)),
+    2: ((23, 221, "shared uint16", 0.0674), (32, 115, "shared uint16", 0.0675),
+        (67, 199, "shared uint16", 0.0785), (107, 217, "shared uint16", 0.0809),
+        (836, 753, "global", 1.1291)),
+    3: ((23, 629, "shared uint16", 0.1400), (32, 475, "shared uint16", 0.1420),
+        (67, 726, "shared uint16", 1.1824), (107, 782, "shared uint16", 1.1884)),
+}
+
+
+def kgram_step_cost(s: int, c_l: int, lv: int) -> float:
+    """Device seconds per byte of the counting pass at level ``lv`` (0: K2;
+    ``lv >= 1``: K3 at k = 2^lv bytes a step) for an automaton of ``s``
+    states whose level has ``c_l`` classes: the sweep's times at that level,
+    interpolated linearly in the table's cells (``c_l * s``) and held at
+    the ends. The cells stand for the table's width and with it its route:
+    the sweep's largest tables are read from global memory, or mapped to
+    class ids first, at their own measured cost. A level the sweep did not
+    reach costs infinity."""
+    rows = sorted((c * n, ms) for n, c, _, ms in KGRAM_SWEEP.get(lv, ()))
+    if not rows:
+        return float("inf")
+    cells, ms = zip(*rows)
+    return float(np.interp(c_l * s, cells, ms)) * 1e-3 / (64 << 20)
+
+
+def choose_kgram_level(s: int, level_classes: list[int]) -> int:
+    """The cheapest level >= 1 under ``kgram_step_cost``, for callers that
+    have already chosen the k-gram engine; ``choose_scan_level`` makes the
+    engine choice itself."""
+    costs = [kgram_step_cost(s, c_l, lv) for lv, c_l in enumerate(level_classes)]
+    return int(np.argmin(costs[1:])) + 1
+
+
+def choose_scan_level(s: int, level_classes: list[int] | None = None) -> int:
+    """The engine of a counting scan: 0 for the k=1 counting pass, ``lv >=
+    1`` for the k-gram engine at that level. Above ``KGRAM_MAX_STATES`` (the
+    measured crossover) the answer is 0 whatever ``level_classes`` say; at
+    or below it the cheapest level under ``kgram_step_cost`` wins, level 0
+    included."""
+    if s > KGRAM_MAX_STATES or not level_classes:
+        return 0
+    costs = [kgram_step_cost(s, c_l, lv) for lv, c_l in enumerate(level_classes)]
+    return int(np.argmin(costs))
 
 
 @dataclasses.dataclass(frozen=True)

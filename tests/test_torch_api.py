@@ -191,18 +191,20 @@ def test_empty_inputs():
 
 @pytest.mark.parametrize("backend", ["auto", "host"])
 def test_unported_backends_raise(backend):
-    """Only the device engines are ported; the router that chooses between
-    them and the host walker comes with the host walker. Until then
-    "host" raises and "auto" (the default) runs the device engines, which
-    give the histograms the host walker would."""
+    """Both backends are ported now: "host" runs the native walker, as in
+    JAX, and "auto" (the default) routes on the card's priors, which may
+    choose another engine than JAX's TPU priors; the histograms are equal
+    either way."""
     cfg = EngineConfig(scan_backend=backend)
+    tm = tapi.compile_tokenizer(config=cfg, device="cpu")
+    jm = japi.compile_tokenizer(config=cfg)
     if backend == "host":
-        with pytest.raises(NotImplementedError, match="router"):
-            tapi.compile_tokenizer(config=cfg, device="cpu")
-    else:
-        tm = tapi.compile_tokenizer(config=cfg, device="cpu")
-        jm = japi.compile_tokenizer(config=cfg)
         assert_reports_equal(tm.scan(TEXT), jm.scan(TEXT))
+        assert tm.scan(TEXT).metrics.engine == "dfa-host-native"
+    else:
+        got, want = tm.scan(TEXT), jm.scan(TEXT)
+        np.testing.assert_array_equal(got.counts, want.counts)
+        assert got.total == want.total
     assert tapi.DEFAULT_CONFIG.scan_backend == "auto"
 
 
@@ -255,6 +257,8 @@ def test_port_imports_no_jax():
         "        mod, _, attr = name.rpartition('.')\n"
         "        getattr(importlib.import_module(mod), attr)\n"
         "import regex_fpga_tpu_torch.ops.dfa_engine\n"
+        "import regex_fpga_tpu_torch.ops.router\n"
+        "import regex_fpga_tpu_torch.utils.profiling\n"
         "import regex_fpga_tpu_torch.ops.kgram\n"
         "import regex_fpga_tpu_torch.ops.dfa_take\n"
         "import regex_fpga_tpu_torch.ops.hopper_nfa\n"

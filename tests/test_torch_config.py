@@ -1,6 +1,6 @@
-"""EngineConfig() in the port: its default ``scan_backend="auto"`` runs the
-device engines (the router is not ported; the host walker would give the
-same histograms), and ``"host"`` raises. compile_regex, compile_literals,
+"""EngineConfig() in the port: its default ``scan_backend="auto"`` routes
+between the device engines and the host walker (the same histograms either
+way), and ``"host"`` forces the walker, raising without it. compile_regex, compile_literals,
 compile_tokenizer and compile_regex_set under a plain EngineConfig() and a
 non-default chunk_bytes, on device="cpu", against the JAX package under the
 same config. Tolerance: none; every count, offset and span must be equal."""
@@ -68,16 +68,41 @@ def test_default_config_is_the_jax_default():
 
 
 @pytest.mark.parametrize("entry", ["regex", "literals", "tokenizer", "snort"])
-def test_host_backend_raises(entry):
-    cfg = EngineConfig(scan_backend="host")
-    calls = {
-        "regex": lambda: tapi.compile_regex(PATTERNS[0], config=cfg,
-                                            device="cpu"),
-        "literals": lambda: tapi.compile_literals([b"ab"], cfg, device="cpu"),
-        "tokenizer": lambda: tapi.compile_tokenizer(config=cfg, device="cpu"),
-        "snort": lambda: tapi.compile_snort(
-            'alert tcp any any -> any any (msg:"a"; content:"ab"; sid:1;)',
-            cfg, device="cpu"),
-    }
-    with pytest.raises(NotImplementedError, match="router"):
-        calls[entry]()
+def test_host_backend_raises(entry, monkeypatch):
+    """scan_backend="host" runs the native walker, equal to the JAX
+    package's; without the walker a forced "host" raises at the first
+    scan."""
+    from regex_fpga_tpu_torch import native
+
+    cfg, jcfg = EngineConfig(scan_backend="host"), JConfig(scan_backend="host")
+    rule = 'alert tcp any any -> any any (msg:"a"; content:"ab"; sid:1;)'
+    compile_ = {
+        "regex": lambda api, c: api.compile_regex(PATTERNS[0], config=c),
+        "literals": lambda api, c: api.compile_literals([b"ab", b"fox"], c),
+        "tokenizer": lambda api, c: api.compile_tokenizer(config=c),
+        "snort": lambda api, c: api.compile_snort(rule, c),
+    }[entry]
+    scan = {
+        "regex": lambda m: m.scan(STREAMS).counts,
+        "literals": lambda m: m.scan_patterns(STREAMS).pattern_counts,
+        "tokenizer": lambda m: m.scan(STREAMS).counts,
+        "snort": lambda m: [[a.sid for a in row]
+                            for row in m.scan([b"xxab", b"fox", b""]).alerts],
+    }[entry]
+    got, want = scan(compile_(_CpuApi, cfg)), scan(compile_(japi, jcfg))
+    assert [np.asarray(r).tolist() for r in got] == \
+        [np.asarray(r).tolist() for r in want]
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(RuntimeError, match="native host walker"):
+        scan(compile_(_CpuApi, cfg))
+
+
+class _CpuApi:
+    """The port's compile functions on device="cpu"."""
+
+    def __getattr__(self, name):
+        fn = getattr(tapi, name)
+        return lambda *a, **k: fn(*a, device="cpu", **k)
+
+
+_CpuApi = _CpuApi()

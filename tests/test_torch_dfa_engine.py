@@ -9,6 +9,7 @@ import torch
 from regex_fpga_tpu.ops import build_dfa_tables as jax_build_dfa_tables
 from regex_fpga_tpu.ops import dfa_engine as je
 from regex_fpga_tpu_torch.ops import dfa_engine as te
+from regex_fpga_tpu_torch.ops.hopper_dfa import dfa_block_fns
 from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
 
 from conftest import random_dfa_table
@@ -88,3 +89,65 @@ def test_blocked_is_exact_on_parity_automaton():
     got = te.dfa_scan_blocked(pt, torch.as_tensor(stream), block_size=128)
     assert_result_equal(got, want)
     assert_result_equal(got, te.dfa_scan_serial(pt, stream))
+
+
+@pytest.mark.parametrize("s", [5, 97, 1000])
+@pytest.mark.parametrize("group", [1, 3, None])
+def test_grouped_blocked_scan_matches_jax(s, group, monkeypatch):
+    """The blocked scan in groups of blocks (1, 3, or all NB at once), each
+    group entered in the final state of the one before, equals JAX's scan
+    over the whole stream: counts, final state, mask, and the states."""
+    rng = np.random.default_rng(s)
+    nb = 7
+    monkeypatch.setattr(te, "FN_GROUP_BYTES", (group or nb) * 4 * s)
+    jt, pt = both_tables(*random_dfa_table(rng, s, 3))
+    b, start = 64, s // 2
+    stream = rng.integers(0, 256, size=nb * b).astype(np.uint8)
+    want = je.dfa_scan_blocked(jt, jnp.asarray(stream), block_size=b, start=start)
+    got = te.dfa_scan_blocked(pt, torch.as_tensor(stream), block_size=b,
+                              start=start)
+    assert_result_equal(got, want)
+    serial = te.dfa_scan_serial(pt, stream, start=start)
+    np.testing.assert_array_equal(got.states.numpy(), serial.states.numpy())
+    # pass 1 of one group against JAX's block functions
+    classes = np.asarray(jt.class_of)[stream].reshape(nb, b)
+    np.testing.assert_array_equal(
+        te.block_transition_functions(pt, torch.as_tensor(classes[:3])).numpy(),
+        np.asarray(je.block_transition_functions(jt, jnp.asarray(classes[:3]))))
+
+
+def test_default_groups_bound_the_block_functions(monkeypatch):
+    """The default group holds at most FN_GROUP_BYTES of block functions."""
+    jt, pt = parity_tables()
+    seen = []
+    real = te.block_transition_functions
+    monkeypatch.setattr(te, "FN_GROUP_BYTES", 3 * 4 * 2)  # 3 blocks of S=2
+    monkeypatch.setattr(te, "block_transition_functions",
+                        lambda t, c: seen.append(c.shape[0]) or real(t, c))
+    stream = np.frombuffer(b"\x01\x00" * 512, np.uint8)
+    got = te.dfa_scan_blocked(pt, torch.as_tensor(stream), block_size=128)
+    assert seen == [3, 3, 2]
+    assert_result_equal(got, je.dfa_scan_blocked(jt, jnp.asarray(stream),
+                                                 block_size=128))
+
+
+def test_dfa_match_positions_matches_jax():
+    rng = np.random.default_rng(9)
+    jt, pt = both_tables(*random_dfa_table(rng, 12, 2))
+    stream = rng.integers(0, 256, size=4 * 256).astype(np.uint8)
+    want = je.dfa_match_positions(
+        je.dfa_scan_blocked(jt, jnp.asarray(stream), block_size=256))
+    got = te.dfa_match_positions(
+        te.dfa_scan_blocked(pt, torch.as_tensor(stream), block_size=256))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="mask"):
+        te.dfa_match_positions(te.DfaScanResult(got, got, None))
+
+
+def test_block_functions_reject_a_corrupt_table():
+    jt, pt = parity_tables()
+    bad = pt.table.clone()
+    bad[0, 1] = 7
+    with pytest.raises(ValueError, match="corrupt"):
+        dfa_block_fns(bad, torch.zeros((2, 8), dtype=torch.uint8))

@@ -1,6 +1,6 @@
 """The Hopper kernels K1 (dfa_chain), K2 (dfa_chain_counts), K3
-(kgram_chain) and K4 (nfa_active_scan) against their plain versions, on the
-card, bit for bit.
+(kgram_chain), K4 (nfa_active_scan) and K6 (dfa_block_fns) against their
+plain versions, on the card, bit for bit.
 
 Every test here needs a CUDA card and nvcc and skips without them. The file
 imports no JAX and no conftest helper, so that it runs where JAX is absent:
@@ -423,6 +423,52 @@ def test_api_on_card_matches_cpu(cuda):
     want = on_cpu.scan(text, collect_positions=True)
     np.testing.assert_array_equal(got.match_positions[0],
                                   want.match_positions[0])
+
+
+@pytest.mark.parametrize("c,s,nb,b", [
+    (2, 2, 333, 1024),        # a parity automaton: many blocks a round
+    (3, 4, 64, 1000),         # (aa)*b reversed, a block size not of 16
+    (36, 836, 70, 1024),      # Aho-Corasick-sized: uint16 table, a block a round
+    (256, 300, 5, 64),        # 256 classes
+    (40, 5000, 9, 256),       # above shared memory: the table in global memory
+    (2, 70_000, 3, 32),       # S above uint16: uint32 entries or global
+])
+def test_dfa_block_fns_matches_plain(cuda, c, s, nb, b):
+    """K6 pass 1 against its plain version, with class ids out of range
+    (they step to state 0) on the last block."""
+    rng = np.random.default_rng(s)
+    table = torch.as_tensor(rng.integers(0, s, size=(c, s)).astype(np.int32),
+                            device=cuda)
+    cls = rng.integers(0, c, size=(nb, b)).astype(np.uint8)
+    if c < 256:
+        cls[-1, ::7] = 255
+    cls = torch.as_tensor(cls, device=cuda)
+    before = hopper_dfa.LAUNCHES["dfa_block_fns"]
+    got = hopper_dfa.dfa_block_fns(table, cls)
+    torch.cuda.synchronize()
+    assert hopper_dfa.LAUNCHES["dfa_block_fns"] == before + 1
+    assert torch.equal(got, hopper_dfa.dfa_block_fns_plain(table, cls))
+
+
+def test_exact_fallback_on_card_matches_cpu(cuda, monkeypatch):
+    """The blocked scan on the card (K6, then K1's full mode), in groups of
+    blocks, equals the CPU's plain path."""
+    from regex_fpga_tpu_torch.ops import dfa_engine
+    from regex_fpga_tpu_torch.ops.dfa_engine import dfa_scan_blocked
+    from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
+
+    rng = np.random.default_rng(3)
+    t = rng.integers(0, 97, size=(256, 97)).astype(np.int32)
+    cpu = tables_from_numpy(t, np.arange(256), rng.random(97) < 0.3, 97)
+    card = cpu.to(cuda)
+    stream = rng.integers(0, 256, size=40 * 1024).astype(np.uint8)
+    want = dfa_scan_blocked(cpu, torch.as_tensor(stream), start=5)
+    for group in (1, 3, 40):
+        monkeypatch.setattr(dfa_engine, "FN_GROUP_BYTES", group * 4 * 97)
+        got = dfa_scan_blocked(card, torch.as_tensor(stream, device=cuda),
+                               start=5)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 def random_nfa(rng, n_states, n_edges, n_accept, n_bytes=256):

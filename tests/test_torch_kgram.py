@@ -353,3 +353,90 @@ def test_kgram_wrapper_checks_and_device_rule():
     with pytest.raises(ValueError):
         tk.map_kgram_classes(tk.build_kgram(tokenizer_tables()[1], levels=2),
                              TEXT[:6])
+
+
+def test_level_gates_follow_the_card_constants():
+    """The gates price a level by the card's gate sweep (KGRAM_SWEEP), not
+    by MXU tiles: at each swept automaton a level costs its measured time a
+    byte; between swept tables the price lies between theirs; a level the
+    sweep did not reach costs infinity. Above KGRAM_MAX_STATES the k=1 pass
+    is the choice whatever the classes."""
+    per_byte = 1e-3 / (64 << 20)
+    for lv, rows in tk.KGRAM_SWEEP.items():
+        for s, c, _, ms in rows:
+            assert tk.kgram_step_cost(s, c, lv) == pytest.approx(ms * per_byte)
+    lo, hi = (tk.kgram_step_cost(s, c, 1)
+              for s, c, _, _ in (tk.KGRAM_SWEEP[1][3], tk.KGRAM_SWEEP[1][4]))
+    assert lo < tk.kgram_step_cost(400, 150, 1) < hi
+    assert tk.kgram_step_cost(23, 10, 4) == float("inf")
+    assert tk.choose_kgram_level(23, [10, 49, 221, 629, 900]) == 2
+    # the sweep's automata: the tokenizer and the Aho-Corasick ones
+    levels = {23: [10, 49, 221, 629], 32: [17, 43, 115, 475],
+              67: [28, 80, 199, 726], 107: [31, 94, 217, 782]}
+    assert {s: tk.choose_scan_level(s, c) for s, c in levels.items()} == \
+        {23: 2, 32: 2, 67: 0, 107: 0}
+    assert tk.choose_scan_level(tk.KGRAM_MAX_STATES + 1, levels[23]) == 0
+    assert tk.choose_scan_level(23, None) == 0
+    assert tk.choose_scan_level(23, []) == 0
+
+
+@pytest.mark.parametrize("s,classes,level", [
+    (23, [10, 49, 221], 2),      # the tokenizer: k = 4 over raw text
+    (107, [31, 94, 217], 1),     # the raw-text levels, k = 2 the cheaper
+    (836, [36, 175, 753], 1),    # 300 keywords: both levels mapped to class ids
+    (4008, [36, 217], 1),        # 1,500 keywords: level 2 out of reach
+])
+def test_choose_kgram_level_depends_on_s_and_classes(s, classes, level):
+    """The level within the k-gram engine follows the sweep: at S = 836 the
+    card, like the JAX package's TPU model (tests/test_kgram.py), picks
+    level 1, since both levels read class ids mapped from the bytes and
+    level 2's map costs more; the tokenizer takes level 2."""
+    assert tk.choose_kgram_level(s, classes) == level
+    assert tk.choose_scan_level(s, classes) == (level if s <= 32 else 0)
+
+
+def test_gate_constant_is_the_sweeps_crossover():
+    """KGRAM_MAX_STATES is the largest swept S up to which K3 at k = 4
+    (level 2) beat K2 (level 0), and the model's own choice agrees with the
+    gate at every swept automaton."""
+    k2 = {s: ms for s, _, _, ms in tk.KGRAM_SWEEP[0]}
+    k3 = {s: ms for s, _, _, ms in tk.KGRAM_SWEEP[2]}
+    swept = sorted(s for s in k3 if s <= 107)
+    wins = [s for s in swept if k3[s] < k2[s]]
+    assert wins == swept[: len(wins)] and wins[-1] == tk.KGRAM_MAX_STATES
+    assert tk.KGRAM_MAX_STATES == jk.KGRAM_MAX_STATES == 32
+    for s in swept:
+        classes = [c for lv in sorted(tk.KGRAM_SWEEP)
+                   for n, c, _, _ in tk.KGRAM_SWEEP[lv] if n == s]
+        model = int(np.argmin([tk.kgram_step_cost(s, c, lv)
+                               for lv, c in enumerate(classes)]))
+        assert (model > 0) == (s <= tk.KGRAM_MAX_STATES)
+
+
+@pytest.mark.parametrize("gate", [0, 32, 1000])
+def test_count_does_not_depend_on_the_level(gate, monkeypatch):
+    """count() is exact on either engine: moving the gate (k=1 everywhere, the
+    card's 32, k-gram for larger automata) changes the engine, not the
+    total."""
+    from regex_fpga_tpu_torch import api as tapi
+    from regex_fpga_tpu_torch.utils.config import EngineConfig
+
+    monkeypatch.setattr(tapi, "KGRAM_MAX_STATES", gate)
+    cfg = EngineConfig(scan_backend="device", num_blocks=16, chunk_bytes=4096)
+    text = bytes(TEXT[:9001])
+    for m in (tapi.compile_tokenizer(config=cfg, device="cpu"),
+              tapi.compile_regex(rb"[a-z]+[0-9]|fox", config=cfg, device="cpu")):
+        assert (m._kgram() is not None) == (m.num_states <= gate)
+        assert m.count(text) == m.scan(text).total
+        assert m.count(text) == int(jk_total(m, text))
+
+
+def jk_total(m, text):
+    """The total of a serial walk of ``m``'s tables."""
+    t, c, a = (x.numpy() for x in (m.tables.table, m.tables.class_of,
+                                   m.tables.accept))
+    s, total = m.start, 0
+    for byte in text:
+        total += int(a[s])
+        s = int(t[c[byte], s])
+    return total + int(m._accept_eof[s])

@@ -348,3 +348,36 @@ def test_traces_match_jax(tmp_path, monkeypatch):
     root = ttraces.reference_root()
     assert root == os.path.join(repo, "reference")
     assert os.path.commonpath([root, repo]) == repo
+
+
+@pytest.mark.parametrize("seed,n,chunks,overlap", [
+    (0, 300_000, 16, 64), (1, 300_000, 16, 64), (2, 500, 32, 192),
+])
+def test_lazy_dfa_host_scan_multi_matches_jax(seed, n, chunks, overlap):
+    """``host_scan_multi``, the speculative multi-cursor lazy walk: counts,
+    final subset state and bytes equal the JAX package's and the serial
+    walk's (500 bytes is below its size threshold: the serial walk)."""
+    rng = np.random.default_rng(seed)
+    aut = random_nfa(rng, n_states=40, n_edges=300, n_accept=5)
+    stream = rng.integers(0, 256, size=n).astype(np.uint8)
+    got, want = tm.LazyDfa(aut), jm.LazyDfa(aut)
+    g_counts, g_sid, g_n = got.host_scan_multi(stream, chunks=chunks,
+                                               overlap=overlap)
+    w_counts, w_sid, w_n = want.host_scan_multi(stream, chunks=chunks,
+                                                overlap=overlap)
+    np.testing.assert_array_equal(g_counts, w_counts)
+    np.testing.assert_array_equal(g_counts, oracle.nfa_scan(aut, stream))
+    assert g_n == w_n == n
+    assert got._sets[g_sid] == want._sets[w_sid]
+    _, serial_sid, _ = tm.LazyDfa(aut).host_scan(stream)
+    assert g_sid == serial_sid
+
+
+def test_lazy_dfa_host_scan_multi_l7_matches_jax():
+    aut = tm.l7_corpus_nfa()
+    payloads, _ = tm.gen_l7_traffic(2000, seed=5)
+    stream = np.frombuffer(b"".join(payloads), np.uint8)[:400_000]
+    got = tm.LazyDfa(aut).host_scan_multi(stream)
+    want = jm.LazyDfa(aut).host_scan_multi(stream)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[2] == want[2] == len(stream)
