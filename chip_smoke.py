@@ -80,7 +80,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    calls that take the exact fallback; the k-gram gate sweep (K2 and K3 at
    k = 2, 4 and 8 for S = 23, 32, 67, 107, 836 and 4,008); and the
    router's priors fitted from this run beside the committed ones;
-8. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
+8. parallel/ on torch.distributed and K5 (nfa_tp_scan): K5 against its
+   plain version on the l7-corpus NFA (4 x 16 KiB) and the Snort-corpus NFA
+   (4 x 2 KiB), two chunks against one run; then, with the launch counts
+   reset, the CLI's corpus as a subprocess over 1 GiB of synthetic text
+   and a 12,345-byte tail (held to a native serial walk); in process with
+   an NCCL group of one rank, dist_resilient_scan over 4 streams x 256 MiB
+   in chunks of 64 MiB (k=1 and k-gram, prefetch depths 2 and 0, a run
+   stopped after chunk 2 and resumed from its checkpoint; GB/s beside
+   count()'s, the host copy's share), dfa_scan_fast_dist and
+   dfa_scan_kgram_dist over 4 x 64 MiB (against one device and the native
+   walk), nfa_scan_dist over 64 flows of 1 MiB of l7 traffic,
+   multi_ruleset_scan over four l7 rulesets and nfa_scan_tp (K5) over the
+   l7 flows (held to K4 and the lazy walk) and over 132 flows of 64 KiB of
+   Snort traffic (held to the native lazy walk); K5's time at both shapes
+   beside its bound and its floor (bytes x one dependent shared load and a
+   CTA barrier, csrc/smem_chase.cu's sync_chase); and last two ranks on the
+   one card over gloo (fast and k-gram scans on a (1, 2) seq mesh, the
+   multi-rank nfa_scan_tp on a (1, 2) model mesh), each equal to world size
+   1;
+9. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
 
 ``--out DIR`` also writes nvcc's report and the results there.
 ``--profile`` adds, after phase 6, one torch.profiler run of each API call
@@ -132,6 +151,8 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                         "regex_fpga_tpu/ops/nfa_engine.py:43"),
     "dfa_block_fns": ("cuda", "regex_fpga_tpu_torch/csrc/dfa_block_fns.cu",
                       "regex_fpga_tpu/ops/dfa_engine.py:78"),
+    "nfa_tp_scan": ("cuda", "regex_fpga_tpu_torch/csrc/nfa_tp_scan.cu",
+                    "regex_fpga_tpu/parallel/tp_scan.py:65"),
 }
 # no single PyTorch call computes a chain pass or an active-set step, so
 # there is no library call to time beside the kernels
@@ -1971,6 +1992,428 @@ def fit_priors(rows, kernel_times) -> dict:
 # ------------------------------------------------------------ --profile
 
 
+# ---------------------------------------------------------------- phase 8
+
+PARALLEL_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain_bytes",
+                 "nfa_active_scan", "nfa_tp_scan")
+CORPUS_PATTERN = r"[0-9]+\.[0-9]+"
+
+
+def sync_ns(threads: int) -> float:
+    """The step of a CTA of ``threads`` threads that loads one dependent
+    shared-memory entry and crosses one barrier (csrc/smem_chase.cu,
+    ``sync_chase``), nanoseconds: the difference of two step counts."""
+    from regex_fpga_tpu_torch import _build
+
+    lib = _build.library()
+    out = torch.empty(threads, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(steps):
+        return lambda: _build.check(
+            lib.sync_chase(threads, steps, out.data_ptr(), stream), "sync_chase")
+    return (event_ms(run(8192), 10) - event_ms(run(4096), 10)) / 4096 * 1e6
+
+
+def token_text(n: int, length: int) -> np.ndarray:
+    """(n, length) streams of bench.py's synthetic text, each rolled."""
+    base = tiled(FRAG, length + 64 * n)
+    return np.stack([base[7 * i: 7 * i + length] for i in range(n)])
+
+
+def rank_program(n: int) -> dict:
+    """The dist scans on ``n`` ranks of one card (phase 8 d): the fast and
+    k-gram scans on a (1, n) seq mesh over 2 x 32 MiB of tokenizer text and
+    nfa_scan_tp on a (1, n) model mesh over the l7-corpus NFA, 2 x 4 KiB.
+    Module level, so that spawn_ranks can run it; numpy results."""
+    from regex_fpga_tpu_torch.models import (build_tokenizer_dfa,
+                                             gen_l7_traffic, l7_corpus_nfa)
+    from regex_fpga_tpu_torch.ops.kgram import build_kgram, kgram_maps, pack_ta
+    from regex_fpga_tpu_torch.ops.tables import build_dfa_tables, build_nfa_csr
+    from regex_fpga_tpu_torch.parallel import (dfa_scan_fast_dist,
+                                               dfa_scan_kgram_dist, make_mesh,
+                                               make_tp_mesh, nfa_scan_tp)
+    from regex_fpga_tpu_torch.parallel.mesh import collective_route
+    from regex_fpga_tpu_torch.parallel.tp_scan import tp_route
+
+    dev = torch.device("cuda")
+    tok = build_tokenizer_dfa()
+    tables = build_dfa_tables(tok.table, tok.accept, device=dev)
+    text = torch.as_tensor(token_text(2, 32 * MIB), device=dev)
+    classes = torch.index_select(tables.class_of.to(torch.uint8), 0,
+                                 text.reshape(-1).int()).reshape(text.shape)
+    mesh = make_mesh(1, n)
+    out = {"route": collective_route(mesh, dev)}
+    t0 = time.perf_counter()
+    fin, cnt, conv = dfa_scan_fast_dist(mesh, tables, classes,
+                                        blocks_per_shard=8192, start=tok.start)
+    torch.cuda.synchronize()
+    out["fast"] = (fin.cpu().numpy(), cnt.cpu().numpy(), conv,
+                   time.perf_counter() - t0)
+    kg = build_kgram(tables, levels=2)
+    ta = pack_ta(torch.as_tensor(kg.table, device=dev),
+                 torch.as_tensor(kg.acc_table, device=dev))
+    t0 = time.perf_counter()
+    fin, tot, conv = dfa_scan_kgram_dist(mesh, ta, None, text,
+                                         blocks_per_shard=8192, start=tok.start,
+                                         maps=kgram_maps(kg).to(dev))
+    torch.cuda.synchronize()
+    out["kgram"] = (fin.cpu().numpy(), tot.cpu().numpy(), conv,
+                    time.perf_counter() - t0)
+    l7 = np.frombuffer(b"".join(gen_l7_traffic()[0]), np.uint8)
+    flows = np.stack([l7[:4096], l7[20_000:24_096]])
+    tp_mesh = make_tp_mesh(n_model=n)
+    out["tp_route"] = tp_route(tp_mesh)
+    t0 = time.perf_counter()
+    counts, bitmap = nfa_scan_tp(tp_mesh, build_nfa_csr(l7_corpus_nfa(), device=dev),
+                                 flows)
+    torch.cuda.synchronize()
+    out["tp"] = (counts.cpu().numpy(), bitmap.cpu().numpy(),
+                 time.perf_counter() - t0)
+    return out
+
+
+def tp_case(rng, aut, corpus: np.ndarray, b: int, length: int, dev):
+    """b streams of ``length`` bytes of ``corpus`` and the start carries."""
+    s = aut.num_states
+    starts = rng.integers(0, len(corpus) - length, size=b)
+    streams = torch.as_tensor(np.stack([corpus[o:o + length] for o in starts]),
+                              device=dev)
+    bitmap = torch.zeros((b, s + 1), dtype=torch.bool, device=dev)
+    bitmap[:, 0] = True
+    return streams, bitmap, torch.zeros((b, s + 1), dtype=torch.int32, device=dev)
+
+
+def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
+    """K5 against its plain version at the check shapes (l7 4 x 16 KiB,
+    Snort 4 x 2 KiB), bit for bit, and the resume carries (two chunks equal
+    one run). Returns the kernels-line entry (times at the l7 check shape)."""
+    from regex_fpga_tpu_torch.ops import hopper_nfa as hn
+    from regex_fpga_tpu_torch.ops.tables import build_nfa_csr
+
+    rng = np.random.default_rng(SEED + 8)
+    err, entry = 0, None
+    for label, aut, corpus, b, length in (
+            ("l7-corpus", l7_aut, l7_bytes, 4, 16 * 1024),
+            ("Snort-corpus", snort_aut, snort_bytes, 4, 2 * 1024)):
+        csr = build_nfa_csr(aut, device=dev)
+        route = hn.nfa_tp_route(csr)
+        streams, bitmap, counts = tp_case(rng, aut, corpus, b, length, dev)
+        got = hn.nfa_tp_scan(csr, streams, bitmap, counts)
+        want, plain_ms = one_run_ms(
+            lambda: hn.nfa_tp_scan_plain(csr, streams, bitmap, counts))
+        err = max(err, max_abs_err(got, want))
+        cut = length // 2 - 123
+        c1, b1 = hn.nfa_tp_scan(csr, streams[:, :cut].contiguous(), bitmap, counts)
+        two = hn.nfa_tp_scan(csr, streams[:, cut:].contiguous(), b1, c1)
+        err = max(err, max_abs_err(two, got))
+        ms = event_ms(lambda: hn.nfa_tp_scan(csr, streams, bitmap, counts), 10)
+        words = hn._pack_bits(bitmap)
+        bound = bound_ms((streams, csr.offsets, csr.targets, csr.class_of,
+                          csr.accept, words, counts), (got[0], words))
+        print(f"kernels: K5 {label} NFA S={aut.num_states} C={csr.num_classes} "
+              f"E={csr.targets.shape[0]}, CSR "
+              f"{'shared (uint16)' if route['csr_smem'] else 'global'}, counters "
+              f"{'shared' if route['counters_smem'] else 'global'}, "
+              f"{route['threads']} threads a stream; {b} streams x {length // 1024} "
+              f"KiB: counts and bitmaps bit-exact against plain (tolerance 0), "
+              f"two chunks equal one run; {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+              f"bound {bound:.5f} ms", flush=True)
+        if entry is None:
+            entry = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": LIBRARY_MS,
+                     "shape": f"{label} NFA, {b} streams x {length // 1024} KiB"}
+    check(err == 0, f"nfa_tp_scan differs from its plain version by {err}")
+    entry["max_abs_err"] = err
+    return entry
+
+
+def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
+                   results):
+    """Phase 8: parallel/ on torch.distributed and K5. Returns the launch
+    counts of its main path; adds K5's entry to ``results``."""
+    import torch.distributed as dist
+
+    from regex_fpga_tpu_torch import api
+    from regex_fpga_tpu_torch.models import build_tokenizer_dfa
+    from regex_fpga_tpu_torch.models.csr import prefix_automaton
+    from regex_fpga_tpu_torch.ops import hopper_nfa as hn
+    from regex_fpga_tpu_torch.ops.dfa_fast import dfa_scan_fast_multi
+    from regex_fpga_tpu_torch.ops.kgram import (build_kgram, dfa_scan_kgram,
+                                                kgram_maps, pack_ta)
+    from regex_fpga_tpu_torch.ops.nfa_engine import nfa_scan, nfa_scan_batch
+    from regex_fpga_tpu_torch.ops.tables import build_dfa_tables, build_nfa_csr
+    from regex_fpga_tpu_torch.parallel import (dfa_scan_fast_dist,
+                                               dfa_scan_kgram_dist, make_mesh,
+                                               make_tp_mesh, multi_ruleset_scan,
+                                               nfa_scan_dist, nfa_scan_tp,
+                                               stack_nfa_tables)
+    from regex_fpga_tpu_torch.parallel import ingest
+    from regex_fpga_tpu_torch.parallel.mesh import collective_route
+    from regex_fpga_tpu_torch.parallel.multihost import spawn_ranks
+    from regex_fpga_tpu_torch.parallel.tp_scan import tp_route
+    from regex_fpga_tpu_torch.ops.tables import build_nfa_tables
+
+    results["nfa_tp_scan"] = phase_k5(dev, snort_aut, snort_bytes, l7_aut,
+                                      l7_bytes)
+    work = os.path.join(ROOT, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    reset_launches()
+
+    # (a) corpus as a user runs it: 1 GiB of synthetic text and a tail
+    t0 = time.perf_counter()
+    size = (1 << 30) + 12345
+    data = tiled(FRAG, size)
+    path = os.path.join(work, "corpus.bin")
+    data.tofile(path)
+    m = api.compile_regex(CORPUS_PATTERN, device=dev)
+    counts, final = native_walk(m.tables, data, m.start)
+    want = int(counts.sum()) + int(bool(m.include_final_match
+                                        and m._accept_eof[final]))
+    prep = time.perf_counter() - t0
+    rc, out, err, wall = run_cli(["corpus", CORPUS_PATTERN, path, "--checkpoint",
+                                  os.path.join(work, "corpus_carry.npz")])
+    check(rc == 0, f"corpus exit code {rc}: {err.decode()[-2000:]}")
+    res = json.loads(out.decode().strip().splitlines()[-1])
+    check(res["matches"] == want and want > 0,
+          f"corpus matches {res['matches']} vs the native walk's {want}")
+    check(res["final_offset"] == 1 << 30 and res["bytes"] == size,
+          "corpus offsets")
+    print(f"parallel: corpus {CORPUS_PATTERN!r} over 1 GiB + 12,345 bytes "
+          f"(mesh {res['mesh']}, k={res['kgram_k']}, chunks of "
+          f"{res['chunk_bytes'] >> 20} MiB, checkpointed): {res['matches']} "
+          f"matches = the native serial walk; "
+          f"{res['bytes_per_sec'] / 1e9:.3f} GB/s in the process (after "
+          f"start-up), {size / wall / 1e9:.3f} GB/s over the subprocess's "
+          f"{wall:.2f} s wall; file and reference {prep:.1f} s", flush=True)
+    del data
+
+    # (b) ingest in process, NCCL group of one rank
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(work, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    mesh = make_mesh(1, 1)
+    tok = build_tokenizer_dfa()
+    tables = build_dfa_tables(tok.table, tok.accept, device=dev)
+    kg = build_kgram(tables, levels=2)
+    corpus = token_text(4, 256 * MIB)
+    chunk = 64 * MIB
+    refs = [native_walk(tables, row, tok.start) for row in corpus]
+    want_counts = np.array([int(c.sum()) for c, _ in refs])
+    want_states = np.array([f for _, f in refs])
+    copy_s = []
+    upload_call = ingest._PinnedUpload.__call__
+
+    def timed_upload(self, slab):  # the host copy into the pinned buffer
+        t = time.perf_counter()
+        item = upload_call(self, slab)
+        copy_s.append(time.perf_counter() - t)
+        return item
+
+    ingest._PinnedUpload.__call__ = timed_upload
+    rates = {}
+    try:
+        for n, (label, kgram) in enumerate((("k=1", None), ("k-gram k=4", kg))):
+            def run(chunks, store=None, depth=2):
+                return ingest.dist_resilient_scan(
+                    mesh, tables, chunks, kgram=kgram, blocks_per_shard=16384,
+                    start=tok.start, store=store, prefetch_depth=depth)
+            run(ingest.iter_batch_chunks(corpus[:, :chunk], chunk))  # warm-up
+            for depth in (2, 0):
+                copy_s.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                carry = run(ingest.iter_batch_chunks(corpus, chunk), depth=depth)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                rates[(label, depth)] = (corpus.size / secs / 1e9,
+                                         sum(copy_s) / secs)
+                check(np.array_equal(carry["counts"], want_counts)
+                      and np.array_equal(carry["states"], want_states),
+                      f"ingest {label} depth {depth}: the native walk")
+            store = ingest.CheckpointStore(os.path.join(work, f"carry{n}.npz"))
+            first = run((c for i, c in enumerate(
+                ingest.iter_batch_chunks(corpus, chunk)) if i < 2), store)
+            check(int(first["offset"]) == 2 * chunk, "stopped after chunk 2")
+            resumed = run(ingest.iter_batch_chunks(corpus, chunk), store)
+            check(np.array_equal(resumed["counts"], want_counts)
+                  and np.array_equal(resumed["states"], want_states),
+                  f"ingest {label}: the resumed run equals the unbroken one")
+    finally:
+        ingest._PinnedUpload.__call__ = upload_call
+    m_tok = forced(api.compile_tokenizer(device=dev), "device")
+    one = corpus[0]
+    m_tok.count([one])
+    ms = wall_ms(lambda: m_tok.count([one]), 3)
+    count_gbs = one.size / float(np.median(ms)) / 1e6
+    for (label, depth), (gbs, share) in rates.items():
+        print(f"parallel: ingest {label}, 4 streams x 256 MiB in chunks of 64 "
+              f"MiB a stream, prefetch depth {depth}: {gbs:.3f} GB/s "
+              f"({gbs / count_gbs:.2f}x count()'s single-stream "
+              f"{count_gbs:.3f} GB/s over 256 MiB), the host copy into the "
+              f"pinned buffers {100 * share:.1f}% of the wall time; equal to "
+              f"the native walk, and a run stopped after chunk 2 and resumed "
+              f"from its checkpoint equals it", flush=True)
+
+    # (c) the dist scans at world size 1 on NCCL, against one device
+    text = torch.as_tensor(token_text(4, 64 * MIB), device=dev)
+    lut = tables.class_of.to(torch.uint8)
+    classes = torch.index_select(lut, 0, text.reshape(-1).int()).reshape(text.shape)
+    starts = torch.full((4,), tok.start, dtype=torch.int32, device=dev)
+    ta = pack_ta(torch.as_tensor(kg.table, device=dev),
+                 torch.as_tensor(kg.acc_table, device=dev))
+    maps = kgram_maps(kg).to(dev)
+    bps = 16384
+    refs = [native_walk(tables, row, tok.start) for row in text.cpu().numpy()]
+    calls = {
+        "dfa_scan_fast_dist": (
+            lambda: dfa_scan_fast_dist(mesh, tables, classes, bps, tok.start),
+            lambda: dfa_scan_fast_multi(tables, classes, bps, starts)),
+        "dfa_scan_kgram_dist": (
+            lambda: dfa_scan_kgram_dist(mesh, ta, None, text, bps, tok.start,
+                                        maps=maps),
+            lambda: [dfa_scan_kgram(ta, row, bps, tok.start, maps=maps)
+                     for row in text]),
+    }
+    for name, (dist_fn, single_fn) in calls.items():
+        fin, cnt, conv = dist_fn()
+        single = single_fn()
+        if name == "dfa_scan_fast_dist":
+            s_fin = single.final_states.cpu().numpy()
+            s_cnt = single.counts.sum(1).cpu().numpy()
+        else:
+            s_fin = np.array([int(r.final_state) for r in single])
+            s_cnt = np.array([int(r.total) for r in single])
+        check(conv and np.array_equal(fin.cpu().numpy(), s_fin)
+              and np.array_equal(cnt.cpu().numpy(), s_cnt)
+              and np.array_equal(s_cnt, [int(c.sum()) for c, _ in refs])
+              and np.array_equal(s_fin, [f for _, f in refs]),
+              f"{name}: one device and the native walk")
+        d_ms = float(np.median(wall_ms(dist_fn, 5)))
+        s_ms = float(np.median(wall_ms(single_fn, 5)))
+        print(f"parallel: {name} 4 x 64 MiB on a 1x1 mesh "
+              f"({collective_route(mesh, dev)}; backend {mesh.backend}): "
+              f"{text.numel() / d_ms / 1e6:.3f} GB/s, one device "
+              f"{text.numel() / s_ms / 1e6:.3f} GB/s, fraction "
+              f"{s_ms / d_ms:.3f}; equal to one device and the native walk",
+              flush=True)
+
+    # (e) the NFA scans
+    csr = build_nfa_csr(l7_aut, device=dev)
+    flows = np.stack([l7_bytes[o:o + MIB] for o in
+                      np.random.default_rng(SEED + 9).integers(0, 63 * MIB, 64)])
+    t0 = time.perf_counter()
+    per, totals = nfa_scan_dist(mesh, csr, flows)
+    torch.cuda.synchronize()
+    nd_s = time.perf_counter() - t0
+    check(torch.equal(totals, per.sum(0, dtype=torch.int32)), "totals = column sums")
+    ref_l7, _ = api.compile_ruleset(l7_aut, api.EngineConfig(), "lazy", dev) \
+        .lazy_dfa.host_scan_batch(list(flows))
+    check(np.array_equal(per.cpu().numpy(), ref_l7),
+          "nfa_scan_dist: the lazy host walk")
+    print(f"parallel: nfa_scan_dist l7-corpus NFA 64 x 1 MiB: {nd_s * 1e3:.1f} ms, "
+          f"totals the column sums, counts equal the lazy host walk", flush=True)
+    subsets = [l7_aut] + [prefix_automaton(l7_aut, k) for k in (200, 400, 600)]
+    one_flow = flows[0]
+    t0 = time.perf_counter()
+    multi = multi_ruleset_scan(mesh, stack_nfa_tables(
+        [build_nfa_tables(a, device=dev) for a in subsets]), one_flow)
+    torch.cuda.synchronize()
+    mr_s = time.perf_counter() - t0
+    for i, a in enumerate(subsets):
+        own = nfa_scan(build_nfa_csr(a, device=dev), one_flow)
+        check(not bool(own.overflowed)
+              and torch.equal(multi[i, :a.num_states], own.counts),
+              f"multi_ruleset_scan ruleset {i}: its own K4 run")
+    print(f"parallel: multi_ruleset_scan {len(subsets)} rulesets (l7 and its "
+          f"prefixes of 200, 400, 600 states) over 1 MiB: {mr_s * 1e3:.1f} ms, "
+          f"each equal to its own K4 run", flush=True)
+    tp_mesh = make_tp_mesh(1, 1)
+    l7_main = torch.as_tensor(flows, device=dev)
+    t0 = time.perf_counter()
+    tp_counts, _ = nfa_scan_tp(tp_mesh, csr, l7_main)
+    torch.cuda.synchronize()
+    tp_l7_s = time.perf_counter() - t0
+    check(np.array_equal(tp_counts.cpu().numpy(), ref_l7), "K5 l7: the lazy walk")
+    k4 = nfa_scan_batch(csr, l7_main, 128)
+    check(not bool(k4.overflowed.any()) and torch.equal(tp_counts, k4.counts),
+          "K5 l7 64 x 1 MiB: K4's counts at bound 128")
+    s_csr = build_nfa_csr(snort_aut, device=dev)
+    s_flows = tiled(snort_bytes, 132 * 64 * 1024).reshape(132, 64 * 1024)
+    t0 = time.perf_counter()
+    s_counts, _ = nfa_scan_tp(tp_mesh, s_csr, s_flows)
+    torch.cuda.synchronize()
+    tp_s_s = time.perf_counter() - t0
+    s_ref = np.stack([snort_ld.host_scan(f)[0] for f in s_flows])
+    check(np.array_equal(s_counts.cpu().numpy(), s_ref),
+          "K5 Snort 132 x 64 KiB: the native lazy walk")
+    launches = launch_counters()
+    print(f"parallel: launches {json.dumps(launches)}; nfa_scan_tp "
+          f"({tp_route(tp_mesh)}): l7 64 x 1 MiB {tp_l7_s * 1e3:.1f} ms (= K4 at "
+          f"bound 128 and the lazy walk), Snort 132 x 64 KiB {tp_s_s * 1e3:.1f} "
+          f"ms (= the native lazy walk)", flush=True)
+    for name in PARALLEL_PATH:
+        check(launches[name] > 0, f"{name} launched on the parallel path")
+
+    # K5 alone at the main path's shapes, beside its bound and floor
+    main = {}
+    for label, c, streams, threads in (
+            ("l7-corpus NFA, 64 flows x 1 MiB", csr, l7_main, None),
+            ("Snort-corpus NFA, 132 flows x 64 KiB", s_csr,
+             torch.as_tensor(s_flows, device=dev), None)):
+        route = hn.nfa_tp_route(c)
+        b, length = streams.shape
+        bm = torch.zeros((b, c.num_states + 1), dtype=torch.bool, device=dev)
+        bm[:, 0] = True
+        cnt = torch.zeros(bm.shape, dtype=torch.int32, device=dev)
+        ms = event_ms(lambda: hn.nfa_tp_scan(c, streams, bm, cnt), 2)
+        words = hn._pack_bits(bm)
+        bound = bound_ms((streams, c.offsets, c.targets, c.class_of, c.accept,
+                          words, cnt), (cnt, words))
+        step = sync_ns(route["threads"])
+        floor = length * step / 1e6
+        main[label] = {"ms": ms, "bound_ms": bound, "floor_ms": floor,
+                       "step_ns": step, "threads": route["threads"]}
+        print(f"time: nfa_tp_scan[{label}, {route['threads']} threads a "
+              f"stream] {ms:.2f} ms, bound {bound:.4f} ms, floor {floor:.2f} ms "
+              f"({length:,} bytes x {step:.2f} ns, a dependent shared load and "
+              f"a CTA barrier of {route['threads']} threads)", flush=True)
+    k4_ms = results["nfa_active_scan"]["main_path"]["ms"]
+    l7_k5 = main["l7-corpus NFA, 64 flows x 1 MiB"]["ms"]
+    print(f"time: l7-corpus NFA 64 x 1 MiB: K5 {l7_k5:.2f} ms against K4 "
+          f"{k4_ms:.2f} ms at bound 128 ({l7_k5 / k4_ms:.2f}x)", flush=True)
+    results["nfa_tp_scan"]["main_path"] = main
+    dist.destroy_process_group()
+
+    # (d) two ranks on the one card over gloo, against world size 1
+    t0 = time.perf_counter()
+    single = rank_program(1)
+    both = spawn_ranks(rank_program, 2, "gloo", "cuda", args=(2,), timeout=600)
+    for r, got in enumerate(both):
+        for key in ("fast", "kgram"):
+            check(got[key][2] and all(np.array_equal(a, b) for a, b in
+                                      zip(got[key][:2], single[key][:2])),
+                  f"rank {r} {key} on a (1, 2) seq mesh: world size 1")
+        # S_pad rounds S + 1 up to the model ranks: compare the states and
+        # the sentinel slot, and the padding is clear
+        s1 = single["tp"][1].shape[1]
+        check(np.array_equal(got["tp"][0], single["tp"][0])
+              and np.array_equal(got["tp"][1][:, :s1], single["tp"][1])
+              and not got["tp"][1][:, s1:].any(),
+              f"rank {r} nfa_scan_tp on a (1, 2) model mesh: world size 1")
+    print(f"parallel: 2 ranks on one card over gloo ({both[0]['route']}): "
+          f"fast {both[0]['fast'][3]:.2f} s, k-gram {both[0]['kgram'][3]:.2f} "
+          f"s over 2 x 32 MiB on a (1, 2) seq mesh; nfa_scan_tp on a (1, 2) "
+          f"model mesh ({both[0]['tp_route']}) {both[0]['tp'][2]:.2f} s over 2 "
+          f"x 4 KiB (world size 1: {single['tp'][2]:.3f} s, "
+          f"{single['tp_route']}); every result equals world size 1 "
+          f"({time.perf_counter() - t0:.1f} s with the spawn)", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def phase_profile(dev, calls, out_dir):
     """One torch.profiler run of each API call after a warm-up: device time
     in copies (memcpy/memset) and in kernels, and the share of the call's
@@ -2089,8 +2532,12 @@ def main(argv=None) -> int:
     router_launches = phase_router(dev, ids, payloads, snort_auto, ac_text,
                                    snort_bytes, kernel_times, args.out)
     done("phase 7 (router, exact fallback)")
+    parallel_launches = phase_parallel(dev, snort_ld, snort_aut, snort_bytes,
+                                       l7_aut, l7_bytes, kernel_times)
+    done("phase 8 (parallel, K5)")
     launches = {k: dfa_launches[k] + nfa_launches[k] + span_launches[k]
-                + ids_launches[k] + router_launches[k] for k in KERNELS}
+                + ids_launches[k] + router_launches[k] + parallel_launches[k]
+                for k in KERNELS}
     if args.profile:
         phase_profile(dev, calls + nfa_calls + span_calls + ids_calls, args.out)
 

@@ -1,7 +1,6 @@
 """Command-line interface of the torch port: the JAX package's CLI
 (``regex_fpga_tpu/__main__.py``) with the same subcommands, arguments,
-output lines and exit codes, less ``corpus``, which waits for the port of
-``parallel/``.
+output lines and exit codes.
 
 The reference's only "UI" is the testbench's final ``$display`` report
 (``Simulation/testbench_BLK_Mem.sv:75-85``); the equivalents here:
@@ -15,8 +14,9 @@ The reference's only "UI" is the testbench's final ``$display`` report
   python -m regex_fpga_tpu_torch conformance
       reproduce the four reference trace runs and verify the golden tables
 
-and ``compile-rules``, ``acgrep``, ``rgrep``, ``snort`` and ``gen-corpus``.
-Every matcher is built on ``--device`` (default ``cuda``, before or after
+and ``compile-rules``, ``acgrep``, ``rgrep``, ``snort``, ``corpus`` (chunked
+ingest into the distributed scan over every rank: 1 without ``torchrun``)
+and ``gen-corpus``. Every matcher is built on ``--device`` (default ``cuda``, before or after
 the subcommand): without a card a subcommand that builds one raises, as the
 entry points do; ``--device cpu`` runs the plain PyTorch versions.
 """
@@ -242,6 +242,78 @@ def cmd_presplit(args) -> int:
     return 0
 
 
+def cmd_corpus(args) -> int:
+    """Count a pattern over a corpus file far larger than device memory:
+    chunked prefetching ingest into the distributed scan (sequence
+    parallelism over every rank), the carry across chunks, and an optional
+    checkpoint to resume from at a chunk boundary."""
+    import time
+
+    from . import api, native
+    from .ops.kgram import build_kgram
+    from .parallel import make_mesh
+    from .parallel.ingest import (
+        CheckpointStore, dist_resilient_scan, iter_file_chunks,
+    )
+    from .parallel.multihost import init_distributed
+
+    m = api.compile_regex(args.pattern, device=args.device)
+    if isinstance(m, api.HostRegexMatcher):
+        print("corpus mode needs a device-scannable pattern "
+              "(\\b/\\B, (?m), and lazy quantifiers route to the host "
+              "engine — use grep)", file=sys.stderr)
+        return 2
+    kg = None
+    if args.kgram_levels:
+        kg = build_kgram(m.tables, levels=args.kgram_levels)
+        if kg is None:
+            print("# k-gram tables blew up; falling back to k=1",
+                  file=sys.stderr)
+    n_seq = init_distributed(device=args.device).global_devices
+    mesh = make_mesh(1, n_seq)
+    k = kg.k if kg else 1
+    bps_align = n_seq * args.blocks_per_shard * k * 64
+    chunk = max(bps_align, (args.chunk_mb << 20) // bps_align * bps_align)
+    size = os.path.getsize(args.file)
+    main_len = (size // chunk) * chunk
+
+    def chunks():
+        for off, c in iter_file_chunks(args.file, chunk):
+            if off + len(c) <= main_len:
+                yield off, c[None, :]
+
+    store = CheckpointStore(args.checkpoint) if args.checkpoint else None
+    t0 = time.perf_counter()
+    carry = dist_resilient_scan(
+        mesh, m.tables, chunks(), kgram=kg,
+        blocks_per_shard=args.blocks_per_shard, start=m.start, store=store,
+    ) if main_len else {"states": np.array([m.start]),
+                        "counts": np.array([0]), "offset": 0}
+    # the tail after the last whole chunk runs on the native host walk from
+    # the carried state
+    total = int(carry["counts"][0])
+    final = int(carry["states"][0])
+    if main_len < size:
+        tail = np.fromfile(args.file, dtype=np.uint8, offset=main_len)
+        t = m.tables
+        counts, _, final = native.dfa_scan(
+            t.table.cpu().numpy(), t.class_of.cpu().numpy(),
+            t.accept.cpu().numpy(), tail, start=final, want_mask=False)
+        total += int(counts.sum())
+    # a match completed by the file's very last byte is only visible via
+    # the end-of-stream accept of the final state (as DfaMatcher.scan)
+    if size and m.include_final_match and bool(m._accept_eof[final]):
+        total += 1
+    wall = time.perf_counter() - t0
+    print(json.dumps({
+        "file": args.file, "bytes": size, "matches": total,
+        "mesh": f"1x{n_seq}", "kgram_k": k, "chunk_bytes": chunk,
+        "bytes_per_sec": round(size / wall, 1),
+        "final_offset": int(carry.get("offset", main_len)),
+    }))
+    return 0
+
+
 def cmd_conformance(args) -> int:
     """The four-trace bit-exact gate (SURVEY.md SS4.2) as a CLI check.
 
@@ -371,6 +443,21 @@ def main(argv=None) -> int:
              "pipeline)",
     )
     s.set_defaults(fn=cmd_snort)
+
+    s = add_parser(
+        "corpus",
+        help="count matches over a huge corpus: chunked prefetching ingest "
+             "-> distributed scan over all ranks, checkpointable",
+    )
+    s.add_argument("pattern")
+    s.add_argument("file")
+    s.add_argument("--chunk-mb", type=int, default=64)
+    s.add_argument("--blocks-per-shard", type=int, default=2048)
+    s.add_argument("--kgram-levels", type=int, default=2,
+                   help="0 disables k-gram precomposition")
+    s.add_argument("--checkpoint", default=None,
+                   help="npz carry path: resume an interrupted scan")
+    s.set_defaults(fn=cmd_corpus)
 
     s = add_parser(
         "gen-corpus",

@@ -11,6 +11,10 @@
 // of chain lanes can do (32 passes through the bank for one load). Time two step counts with CUDA events and
 // divide the difference by the difference in steps; the launch and the
 // fill then cancel.
+//
+// sync_chase times the step of a kernel that crosses a CTA barrier on every
+// byte (nfa_tp_scan.cu): each of the CTA's threads follows the same kind of
+// cycle, one dependent shared-memory load and one __syncthreads() a step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,7 +37,27 @@ __global__ void __launch_bounds__(32) smem_chase_kernel(int steps, int spread, i
   out[threadIdx.x] = (int)off;
 }
 
+__global__ void __launch_bounds__(1024) sync_chase_kernel(int steps, int* out) {
+  __shared__ uint32_t table[ENTRIES];
+  for (int k = threadIdx.x; k < ENTRIES; k += blockDim.x)
+    table[k] = (uint32_t)((k + 4097) & (ENTRIES - 1));
+  __syncthreads();
+  unsigned idx = threadIdx.x;
+  for (int t = 0; t < steps; ++t) {
+    idx = table[idx];
+    __syncthreads();
+  }
+  out[threadIdx.x] = (int)idx;
+}
+
 }  // namespace
+
+// threads: 32 to 1024, a multiple of 32. out: `threads` int32.
+extern "C" int sync_chase(int threads, int steps, int* out, void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32) return (int)cudaErrorInvalidValue;
+  sync_chase_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(steps, out);
+  return (int)cudaGetLastError();
+}
 
 // entry_bytes: 2 or 4. out: 32 int32 (the lanes' last offsets, so that the
 // loads cannot be dropped).

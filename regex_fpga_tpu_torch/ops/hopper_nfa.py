@@ -1,4 +1,4 @@
-"""K4: the bounded active-set NFA scan on Hopper, with its plain version.
+"""K4 and K5: the NFA scans on Hopper, with their plain versions.
 
 ``nfa_active_scan`` runs N independent streams through an NFA, each from
 its own list of A active states (sentinel ``S`` as padding), and per byte:
@@ -15,6 +15,16 @@ Streams are slices of one flat uint8 tensor: stream n is
 padding. ``starts`` and ``lengths`` are host sequences (checked on the host,
 then uploaded).
 
+``nfa_tp_scan`` (K5) runs B streams of one length through an NFA with no
+bound on the active set: each stream carries a bitmap of active states, and
+per byte the accepting states of the bitmap count and the union of their
+successors becomes the next bitmap. It is the loop of
+``regex_fpga_tpu/parallel/tp_scan.py::nfa_scan_tp`` with the model axis of
+size one, bit for bit; its kernel is ``csrc/nfa_tp_scan.cu`` and reads the
+same CSR (``nfa_tp_route``). ``nfa_tp_scan_plain`` is the JAX step in torch
+ops, also over a slice of the states with a cross-rank sum of the
+successors: the route that ``parallel.tp_scan`` takes on more than one rank.
+
 A wrapper launches the kernel for CUDA tensors and takes the plain version
 only for CPU tensors.
 """
@@ -28,22 +38,21 @@ from .. import _build
 from .tables import NfaCsr
 
 __all__ = ["LAUNCHES", "nfa_active_route", "nfa_active_scan",
-           "nfa_active_scan_plain"]
+           "nfa_active_scan_plain", "nfa_tp_route", "nfa_tp_scan",
+           "nfa_tp_scan_plain"]
 
 #: Kernel launches since the last reset.
-LAUNCHES = {"nfa_active_scan": 0}
+LAUNCHES = {"nfa_active_scan": 0, "nfa_tp_scan": 0}
 
 
-def _check_args(csr: NfaCsr, data, starts, lengths, active, counts):
-    """Validate a scan's inputs; returns (starts, lengths) as int64 numpy."""
-    dev = data.device
+def _check_csr(csr: NfaCsr, dev, **tensors) -> None:
+    """The CSR's fields, and ``tensors``, lie on ``dev`` with K4's and K5's
+    types and shapes."""
     for name, t in (("offsets", csr.offsets), ("targets", csr.targets),
                     ("class_of", csr.class_of), ("accept", csr.accept),
-                    ("active", active), ("counts", counts)):
+                    *tensors.items()):
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, data on {dev}")
-    if data.dim() != 1 or data.dtype != torch.uint8:
-        raise TypeError("data must be a 1-D uint8 tensor")
+            raise ValueError(f"{name} is on {t.device}, the input on {dev}")
     s = csr.num_states
     if csr.offsets.dtype != torch.int32 or csr.offsets.dim() != 2 \
             or csr.offsets.shape[1] != s + 2:
@@ -53,6 +62,14 @@ def _check_args(csr: NfaCsr, data, starts, lengths, active, counts):
         raise TypeError("targets and class_of must be int32 ((256,) class_of)")
     if csr.accept.shape != (s + 1,) or csr.accept.dtype != torch.bool:
         raise TypeError(f"accept must be a ({s + 1},) bool tensor")
+
+
+def _check_args(csr: NfaCsr, data, starts, lengths, active, counts):
+    """Validate a scan's inputs; returns (starts, lengths) as int64 numpy."""
+    _check_csr(csr, data.device, active=active, counts=counts)
+    if data.dim() != 1 or data.dtype != torch.uint8:
+        raise TypeError("data must be a 1-D uint8 tensor")
+    s = csr.num_states
     starts = np.asarray(starts, dtype=np.int64).reshape(-1)
     lengths = np.asarray(lengths, dtype=np.int64).reshape(-1)
     n = len(starts)
@@ -166,3 +183,141 @@ def nfa_active_scan_plain(csr: NfaCsr, data, starts, lengths, active, counts):
         over |= live & (nxt[:, a] != s)
         act = torch.where(live[:, None], nxt[:, :a], act)
     return cnt, act.to(torch.int32), over
+
+
+# ----------------------------------------------------------------------- K5
+
+
+def _check_tp_args(csr: NfaCsr, streams, bitmap, counts) -> None:
+    _check_csr(csr, streams.device, bitmap=bitmap, counts=counts)
+    if streams.dim() != 2 or streams.dtype != torch.uint8:
+        raise TypeError("streams must be a (B, L) uint8 tensor")
+    b = streams.shape[0]
+    if bitmap.dim() != 2 or bitmap.shape[0] != b or bitmap.dtype != torch.bool:
+        raise TypeError(f"bitmap must be a ({b}, N) bool tensor")
+    if counts.shape != bitmap.shape or counts.dtype != torch.int32:
+        raise TypeError(f"counts must be a {tuple(bitmap.shape)} int32 tensor")
+
+
+def nfa_tp_scan(csr: NfaCsr, streams, bitmap, counts):
+    """K5. ``streams`` (B, L) uint8; ``bitmap`` (B, N) bool, the active
+    states before the first byte (N >= S + 1, states >= S inert);
+    ``counts`` (B, N) int32, the starting counts. Returns (counts (B, N)
+    int32, bitmap (B, N) bool) after the last byte; the inputs are not
+    modified."""
+    _check_tp_args(csr, streams, bitmap, counts)
+    s = csr.num_states
+    if bitmap.shape[1] < s + 1:
+        raise ValueError(f"the bitmap must cover the {s + 1} states and "
+                         f"the sentinel")
+    if streams.device.type == "cpu":
+        return nfa_tp_scan_plain(csr, streams, bitmap, counts)
+    if streams.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {streams.device}")
+    tg = csr.targets
+    if tg.numel() and bool(((tg < 0) | (tg >= s)).any()):
+        raise ValueError(f"CSR targets must lie in [0, {s})")
+    b, length = streams.shape
+    n = bitmap.shape[1]
+    dev = streams.device
+    words = _pack_bits(bitmap)
+    out = counts.contiguous().clone()
+    n_acc = int(csr.accept[:s].sum())
+    streams = streams.contiguous()
+    offsets, targets = csr.offsets.contiguous(), tg.contiguous()
+    class_of, accept = csr.class_of.contiguous(), csr.accept.contiguous()
+    LAUNCHES["nfa_tp_scan"] += 1
+    with torch.cuda.device(dev):
+        rc = _build.library().nfa_tp_scan(
+            streams.data_ptr(), length, b, class_of.data_ptr(),
+            offsets.data_ptr(), targets.data_ptr(), accept.data_ptr(),
+            csr.num_classes, s, targets.shape[0], n_acc, words.data_ptr(),
+            out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "nfa_tp_scan")
+    return out, _unpack_bits(words, n)
+
+
+def nfa_tp_route(csr: NfaCsr) -> dict:
+    """Where K5 keeps its data for this NFA on the current card:
+    {"csr_smem": bool (narrowed to 16 bits), "counters_smem": bool,
+    "threads": threads per CTA (one CTA a stream)}. Raises when the
+    bitmaps do not fit in shared memory."""
+    n_acc = int(csr.accept[:csr.num_states].sum())
+    r = _build.library().nfa_tp_route(csr.num_classes, csr.num_states,
+                                      csr.targets.shape[0], n_acc)
+    if r < 0:
+        raise ValueError(f"the bitmaps of {csr.num_states} states exceed the "
+                         f"card's shared memory")
+    return {"csr_smem": bool(r & 1), "counters_smem": bool(r & 2),
+            "threads": r >> 8}
+
+
+def _pack_bits(bitmap: torch.Tensor) -> torch.Tensor:
+    """(B, N) bool -> (B, ceil(N / 32)) int32 words, state i at bit i % 32
+    of word i // 32."""
+    b, n = bitmap.shape
+    w = -(-n // 32)
+    bits = torch.zeros((b, w * 32), dtype=torch.int64, device=bitmap.device)
+    bits[:, :n] = bitmap
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=bitmap.device),
+        torch.arange(32, device=bitmap.device))
+    words = (bits.reshape(b, w, 32) * weights).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words) \
+        .to(torch.int32).contiguous()
+
+
+def _unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = torch.bitwise_right_shift(words[..., None], shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :n].bool()
+
+
+def _edges(csr: NfaCsr, lo: int, hi: int):
+    """The CSR's edges from the states lo..hi-1, as (class, source - lo,
+    target) int64 tensors."""
+    s = csr.num_states
+    lens = (csr.offsets[:, 1:] - csr.offsets[:, :-1]).reshape(-1).long()
+    rows = torch.repeat_interleave(
+        torch.arange(lens.numel(), device=lens.device), lens)
+    first = int(csr.offsets[0, 0]) if csr.offsets.numel() else 0
+    tgt = csr.targets[first:first + rows.numel()].long()
+    cls, src = rows // (s + 1), rows % (s + 1)
+    keep = (src >= lo) & (src < min(hi, s))
+    return cls[keep], src[keep] - lo, tgt[keep]
+
+
+def nfa_tp_scan_plain(csr: NfaCsr, streams, bitmap, counts, lo: int = 0,
+                      s_pad: int | None = None, all_reduce=None):
+    """Plain-torch K5, the JAX step: per byte, counts += bitmap & accept;
+    the successors of the active states are scatter-added into an
+    (B, s_pad) count, ``all_reduce`` (when given) sums that count over the
+    ranks in place, and the slice of it > 0, with the sentinel slot S
+    cleared, is the next bitmap. ``bitmap`` and ``counts`` (B, n) hold the
+    states lo..lo+n-1 of ``s_pad`` (default n)."""
+    dev = streams.device
+    b, length = streams.shape
+    n = bitmap.shape[1]
+    s = csr.num_states
+    s_pad = n if s_pad is None else s_pad
+    e_cls, e_src, e_tgt = _edges(csr, lo, lo + n)
+    acc = torch.zeros(n, dtype=torch.bool, device=dev)
+    real = csr.accept[lo:min(lo + n, s)]
+    acc[:real.numel()] = real
+    cls = torch.index_select(csr.class_of, 0, streams.reshape(-1).int()) \
+        .reshape(b, length)
+    bm = bitmap.clone()
+    cnt = counts.clone()
+    sentinel = s - lo if lo <= s < lo + n else None
+    for t in range(length):
+        cnt += (bm & acc).to(cnt.dtype)
+        w = bm[:, e_src] & (e_cls[None, :] == cls[:, t:t + 1])
+        partial = torch.zeros((b, s_pad), dtype=torch.int32, device=dev)
+        partial.index_add_(1, e_tgt, w.to(torch.int32))
+        if all_reduce is not None:
+            all_reduce(partial)
+        bm = partial[:, lo:lo + n] > 0
+        if sentinel is not None:
+            bm[:, sentinel] = False
+    return cnt, bm

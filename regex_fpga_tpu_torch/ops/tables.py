@@ -34,6 +34,7 @@ __all__ = [
     "build_nfa_csr",
     "build_nfa_tables",
     "host_to_device",
+    "nfa_csr_from_tables",
     "resolve_device",
     "stall_extend",
     "tables_from_numpy",
@@ -241,7 +242,25 @@ def build_nfa_tables(aut: CsrAutomaton, device=None) -> NfaTables:
 def build_nfa_csr(aut: CsrAutomaton, device=None) -> NfaCsr:
     """K4's layout: per class, each state's distinct successors, ascending."""
     cls, num_classes, ecls, src, tgt = _class_edges(aut)
-    s = aut.num_states
+    accept = np.concatenate([aut.accept_mask, [False]])
+    return _csr_from_edges(ecls, src, tgt, num_classes, aut.num_states, cls,
+                           accept, device)
+
+
+def nfa_csr_from_tables(tables: NfaTables, device=None) -> NfaCsr:
+    """The CSR of a dense table: each cell's successors other than the
+    sentinel, distinct and ascending. ``device`` defaults to the table's."""
+    delta = tables.delta.cpu().numpy()
+    s = tables.num_states
+    ecls, src, slot = np.nonzero((delta >= 0) & (delta < s))
+    return _csr_from_edges(ecls, src, delta[ecls, src, slot].astype(np.int64),
+                           delta.shape[0], s, tables.class_of.cpu().numpy(),
+                           tables.accept.cpu().numpy(),
+                           tables.delta.device if device is None else device)
+
+
+def _csr_from_edges(ecls, src, tgt, num_classes: int, s: int, cls, accept,
+                    device) -> NfaCsr:
     keys = np.unique((ecls * (s + 1) + src) * s + tgt)  # sorted (c, src, tgt)
     rows, targets = keys // s, keys % s
     bounds = np.searchsorted(rows, np.arange(num_classes * (s + 1) + 1))
@@ -250,7 +269,6 @@ def build_nfa_csr(aut: CsrAutomaton, device=None) -> NfaCsr:
     offsets = np.empty((num_classes, s + 2), dtype=np.int32)
     offsets[:, :-1] = bounds[:-1].reshape(num_classes, s + 1)
     offsets[:, -1] = bounds[1:].reshape(num_classes, s + 1)[:, -1]
-    accept = np.concatenate([aut.accept_mask, [False]])
     return NfaCsr(
         offsets=torch.tensor(offsets, device=device),
         targets=torch.tensor(targets.astype(np.int32), device=device),

@@ -192,8 +192,71 @@ def test_cli_needs_a_card_unless_told(files, monkeypatch, capsys):
                  ["snort", files["rules"], files["text"]],
                  ["snort", files["rules"], "--coverage"],
                  ["presplit", files["text"]],
+                 ["corpus", "x", files["text"]],
                  ["--device", "cuda", "grep", "x", files["text"]]):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             tmain(argv)
     assert tmain(["--device", "cpu", "grep", "-c", "a", files["text"]]) == 0
     assert capsys.readouterr().out == f"{files['text']}:6\n"
+
+
+def corpus_json(main, argv, capsys, device=()):
+    rc = main(argv + list(device))
+    out, err = capsys.readouterr()
+    return rc, json.loads(out.strip().splitlines()[-1]), err
+
+
+def assert_corpus_same(got, want):
+    """The JSON lines are equal but for the mesh (JAX's is its 8 virtual
+    devices, the port's the one rank) and the rate (present in both)."""
+    assert got[0] == want[0] == 0
+    g, w = dict(got[1]), dict(want[1])
+    assert g.pop("bytes_per_sec") > 0 and w.pop("bytes_per_sec") > 0
+    assert g.pop("mesh") == "1x1" and w.pop("mesh") == "1x8"
+    assert g == w
+
+
+def test_cli_corpus_exact(tmp_path, capsys):
+    """A 1 MiB chunk on the distributed path, then the 12,345-byte tail on
+    the serial walk, with a checkpoint; a rerun resumes from it."""
+    data = (b"GET /a.php HTTP/1.1 stuff 12.5 more " * 40000)[: (1 << 20) + 12345]
+    f = tmp_path / "corpus.bin"
+    f.write_bytes(data)
+    argv = ["corpus", r"[0-9]+\.[0-9]+", str(f), "--chunk-mb", "1",
+            "--blocks-per-shard", "8"]
+    got = corpus_json(tmain, argv + ["--checkpoint", str(tmp_path / "t.npz")],
+                      capsys, ["--device", "cpu"])
+    want = corpus_json(jmain, argv + ["--checkpoint", str(tmp_path / "j.npz")],
+                       capsys)
+    assert_corpus_same(got, want)
+    assert got[1]["final_offset"] == 1 << 20 and got[1]["kgram_k"] == 4
+    from regex_fpga_tpu_torch import api
+
+    assert got[1]["matches"] == api.compile_regex(
+        rb"[0-9]+\.[0-9]+", device="cpu").count(data) > 0
+    again = corpus_json(tmain, argv + ["--checkpoint", str(tmp_path / "t.npz")],
+                        capsys, ["--device", "cpu"])
+    assert again[1]["matches"] == got[1]["matches"]
+
+
+def test_cli_corpus_host_pattern_refused(tmp_path, capsys):
+    f = tmp_path / "x.bin"
+    f.write_bytes(b"data")
+    got = run(tmain, ["corpus", r"\bword\b", str(f), "--device", "cpu"], capsys)
+    want = run(jmain, ["corpus", r"\bword\b", str(f)], capsys)
+    assert got == want and got[0] == 2
+
+
+@pytest.mark.parametrize("levels", ["2", "0"])
+def test_cli_corpus_counts_eof_match(tmp_path, capsys, levels):
+    """A match that the file's last byte completes counts (the end-of-stream
+    accept, as grep -c), on the serial tail alone."""
+    data = b"x" * 4099 + b"price 12.5"
+    f = tmp_path / "eof.bin"
+    f.write_bytes(data)
+    argv = ["corpus", r"[0-9]+\.[0-9]+", str(f), "--chunk-mb", "1",
+            "--blocks-per-shard", "8", "--kgram-levels", levels]
+    got = corpus_json(tmain, argv, capsys, ["--device", "cpu"])
+    want = corpus_json(jmain, argv, capsys)
+    assert_corpus_same(got, want)
+    assert got[1]["matches"] == 1

@@ -1,6 +1,6 @@
 """The Hopper kernels K1 (dfa_chain), K2 (dfa_chain_counts), K3
-(kgram_chain), K4 (nfa_active_scan) and K6 (dfa_block_fns) against their
-plain versions, on the card, bit for bit.
+(kgram_chain), K4 (nfa_active_scan), K5 (nfa_tp_scan) and K6 (dfa_block_fns)
+against their plain versions, on the card, bit for bit.
 
 Every test here needs a CUDA card and nvcc and skips without them. The file
 imports no JAX and no conftest helper, so that it runs where JAX is absent:
@@ -564,3 +564,102 @@ def test_nfa_active_scan_many_streams_per_cta(cuda, name):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def hub_nfa(rng, n_states, n_edges, hub_edges, n_bytes):
+    """A random NFA whose start state has ``hub_edges`` more successors, as
+    the start state of the Snort-corpus NFA has: rows far wider than a CTA."""
+    aut = random_nfa(rng, n_states, n_edges, n_states // 10, n_bytes)
+    src = np.concatenate([np.zeros(hub_edges, np.int64),
+                          np.repeat(np.arange(n_states), np.diff(aut.offsets))])
+    order = np.argsort(src, kind="stable")
+    chars = np.concatenate([rng.integers(0, n_bytes, size=hub_edges),
+                            aut.trans_char])[order]
+    tgts = np.concatenate([rng.integers(1, n_states, size=hub_edges),
+                           aut.trans_target])[order]
+    return CsrAutomaton(
+        offsets=np.searchsorted(src[order], np.arange(n_states + 1)).astype(np.int64),
+        trans_char=chars.astype(np.uint8), trans_target=tgts.astype(np.int32))
+
+
+def hub_case(n_states, n_edges, hub_edges, n_bytes):
+    def make(rng):
+        aut = hub_nfa(rng, n_states, n_edges, hub_edges, n_bytes)
+        return aut, rng.integers(0, n_bytes, size=5000).astype(np.uint8)
+    return make
+
+
+TP_NFAS = {  # name -> (automaton, bytes), K5's CSR route
+    **NFAS,
+    "hub of 3,000 successors": hub_case(4000, 30_000, 3000, 16),
+    # one byte value, about 30 successors a state: more rows above the
+    # wide-row limit a byte than the queue holds
+    "1,500 dense states": random_case(1500, 40_000, 1),
+}
+TP_CSR_SMEM = {**CSR_SMEM, "hub of 3,000 successors": True,
+               "1,500 dense states": True}
+
+
+def tp_inputs(rng, aut, data, b, length, cuda):
+    """Streams, and start bitmaps and counts that cover S + 1 states and a
+    few padding slots, with bits set in the sentinel and padding slots."""
+    s = aut.num_states
+    n = s + 1 + 5
+    starts = rng.integers(0, len(data) - length, size=b)
+    streams = np.stack([data[o:o + length] for o in starts])
+    bitmap = rng.random((b, n)) < 0.05
+    bitmap[:, 0] = True
+    counts = rng.integers(0, 1000, size=(b, n)).astype(np.int32)
+    return (torch.as_tensor(streams, device=cuda),
+            torch.as_tensor(bitmap, device=cuda),
+            torch.as_tensor(counts, device=cuda))
+
+
+@pytest.mark.parametrize("name", list(TP_NFAS))
+def test_nfa_tp_scan_matches_plain(cuda, name):
+    """Random start bitmaps (sentinel and padding bits among them), start
+    counts of any value, and a stream of 0 bytes, which keeps its bitmap."""
+    rng = np.random.default_rng(5)
+    aut, data = TP_NFAS[name](rng)
+    csr = build_nfa_csr(aut, device=cuda)
+    route = hopper_nfa.nfa_tp_route(csr)
+    assert route["csr_smem"] == TP_CSR_SMEM[name]
+    length = 1500 if aut.num_states < 10_000 else 400
+    for b, ln in ((4, length), (3, 0), (2, 33)):
+        streams, bitmap, counts = tp_inputs(rng, aut, data, b, ln, cuda)
+        before = hopper_nfa.LAUNCHES["nfa_tp_scan"]
+        got = hopper_nfa.nfa_tp_scan(csr, streams, bitmap, counts)
+        assert hopper_nfa.LAUNCHES["nfa_tp_scan"] == before + 1
+        want = hopper_nfa.nfa_tp_scan_plain(csr, streams, bitmap, counts)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if ln == 0:
+            assert torch.equal(got[1], bitmap) and torch.equal(got[0], counts)
+
+
+@pytest.mark.parametrize("name", ["l7 corpus", "hub of 3,000 successors"])
+def test_nfa_tp_scan_resumes(cuda, name):
+    """Two chunks in a row, the second from the first's carries, equal one
+    unbroken run; on l7 the counts equal K4's at bound 128."""
+    rng = np.random.default_rng(8)
+    aut, data = TP_NFAS[name](rng)
+    s = aut.num_states
+    csr = build_nfa_csr(aut, device=cuda)
+    streams = torch.as_tensor(np.stack([data[o:o + 3000] for o in (0, 900)]),
+                              device=cuda)
+    bitmap = torch.zeros((2, s + 1), dtype=torch.bool, device=cuda)
+    bitmap[:, 0] = True
+    counts = torch.zeros((2, s + 1), dtype=torch.int32, device=cuda)
+    whole = hopper_nfa.nfa_tp_scan(csr, streams, bitmap, counts)
+    c1, b1 = hopper_nfa.nfa_tp_scan(csr, streams[:, :1234], bitmap, counts)
+    two = hopper_nfa.nfa_tp_scan(csr, streams[:, 1234:].contiguous(), b1, c1)
+    for g, w in zip(two, whole):
+        assert torch.equal(g, w)
+    if name == "l7 corpus":
+        flat = streams.reshape(-1)
+        k4 = hopper_nfa.nfa_active_scan(
+            csr, flat, [0, 3000], [3000, 3000], initial_active(s, 128, 2, cuda),
+            torch.zeros((2, s + 1), dtype=torch.int32, device=cuda))
+        assert not bool(k4[2].any())
+        assert torch.equal(whole[0][:, :s], k4[0][:, :s])
