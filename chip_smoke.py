@@ -82,8 +82,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    router's priors fitted from this run beside the committed ones;
 8. parallel/ on torch.distributed and K5 (nfa_tp_scan): K5 against its
    plain version on the l7-corpus NFA (4 x 16 KiB) and the Snort-corpus NFA
-   (4 x 2 KiB), two chunks against one run; then, with the launch counts
-   reset, the CLI's corpus as a subprocess over 1 GiB of synthetic text
+   (4 x 2 KiB), two chunks against one run, and K5's sharded step
+   (nfa_tp_step, the multi-rank route) on l7 (4 x 4 KiB) against K5 and
+   its plain version; then, counting the launches of the main path's own
+   calls only (not their references), the CLI's corpus as a subprocess over 1 GiB of synthetic text
    and a 12,345-byte tail (held to a native serial walk); in process with
    an NCCL group of one rank, dist_resilient_scan over 4 streams x 256 MiB
    in chunks of 64 MiB (k=1 and k-gram, prefetch depths 2 and 0, a run
@@ -97,8 +99,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    beside its bound and its floor (bytes x one dependent shared load and a
    CTA barrier, csrc/smem_chase.cu's sync_chase); and last two ranks on the
    one card over gloo (fast and k-gram scans on a (1, 2) seq mesh, the
-   multi-rank nfa_scan_tp on a (1, 2) model mesh), each equal to world size
-   1;
+   multi-rank nfa_scan_tp on a (1, 2) model mesh: a launch of K5's step and
+   an all_reduce a byte), each equal to world size 1;
 9. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
 
 ``--out DIR`` also writes nvcc's report and the results there.
@@ -153,6 +155,8 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                       "regex_fpga_tpu/ops/dfa_engine.py:78"),
     "nfa_tp_scan": ("cuda", "regex_fpga_tpu_torch/csrc/nfa_tp_scan.cu",
                     "regex_fpga_tpu/parallel/tp_scan.py:65"),
+    "nfa_tp_step": ("cuda", "regex_fpga_tpu_torch/csrc/nfa_tp_scan.cu",
+                    "regex_fpga_tpu/parallel/tp_scan.py:122"),
 }
 # no single PyTorch call computes a chain pass or an active-set step, so
 # there is no library call to time beside the kernels
@@ -250,6 +254,18 @@ def reset_launches() -> None:
                      hopper_nfa.LAUNCHES):
         for k in launches:
             launches[k] = 0
+
+
+@contextlib.contextmanager
+def counted(into: dict):
+    """Adds the kernel launches made inside the block to ``into``: a main
+    path's own calls go in such a block, their references outside it."""
+    before = launch_counters()
+    try:
+        yield
+    finally:
+        for k, v in launch_counters().items():
+            into[k] = into.get(k, 0) + v - before[k]
 
 
 def forced(m, backend: str):
@@ -1995,7 +2011,7 @@ def fit_priors(rows, kernel_times) -> dict:
 # ---------------------------------------------------------------- phase 8
 
 PARALLEL_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain_bytes",
-                 "nfa_active_scan", "nfa_tp_scan")
+                 "nfa_active_scan", "nfa_tp_scan", "nfa_tp_step")
 CORPUS_PATTERN = r"[0-9]+\.[0-9]+"
 
 
@@ -2025,7 +2041,8 @@ def rank_program(n: int) -> dict:
     """The dist scans on ``n`` ranks of one card (phase 8 d): the fast and
     k-gram scans on a (1, n) seq mesh over 2 x 32 MiB of tokenizer text and
     nfa_scan_tp on a (1, n) model mesh over the l7-corpus NFA, 2 x 4 KiB.
-    Module level, so that spawn_ranks can run it; numpy results."""
+    Module level, so that spawn_ranks can run it; numpy results, and the
+    kernel launches of this rank's calls."""
     from regex_fpga_tpu_torch.models import (build_tokenizer_dfa,
                                              gen_l7_traffic, l7_corpus_nfa)
     from regex_fpga_tpu_torch.ops.kgram import build_kgram, kgram_maps, pack_ta
@@ -2037,6 +2054,7 @@ def rank_program(n: int) -> dict:
     from regex_fpga_tpu_torch.parallel.tp_scan import tp_route
 
     dev = torch.device("cuda")
+    before = launch_counters()
     tok = build_tokenizer_dfa()
     tables = build_dfa_tables(tok.table, tok.accept, device=dev)
     text = torch.as_tensor(token_text(2, 32 * MIB), device=dev)
@@ -2070,6 +2088,7 @@ def rank_program(n: int) -> dict:
     torch.cuda.synchronize()
     out["tp"] = (counts.cpu().numpy(), bitmap.cpu().numpy(),
                  time.perf_counter() - t0)
+    out["launches"] = {k: v - before[k] for k, v in launch_counters().items()}
     return out
 
 
@@ -2087,7 +2106,9 @@ def tp_case(rng, aut, corpus: np.ndarray, b: int, length: int, dev):
 def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
     """K5 against its plain version at the check shapes (l7 4 x 16 KiB,
     Snort 4 x 2 KiB), bit for bit, and the resume carries (two chunks equal
-    one run). Returns the kernels-line entry (times at the l7 check shape)."""
+    one run); K5's sharded step (l7 4 x 4 KiB) against K5 and against its
+    plain version on each half of the states. Returns the kernels-line
+    entries of nfa_tp_scan and nfa_tp_step (times at the l7 check shapes)."""
     from regex_fpga_tpu_torch.ops import hopper_nfa as hn
     from regex_fpga_tpu_torch.ops.tables import build_nfa_csr
 
@@ -2126,7 +2147,45 @@ def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
                      "shape": f"{label} NFA, {b} streams x {length // 1024} KiB"}
     check(err == 0, f"nfa_tp_scan differs from its plain version by {err}")
     entry["max_abs_err"] = err
-    return entry
+
+    # the multi-rank route's kernel, a launch a byte: all the states of one
+    # rank against K5, then each half of an S_pad of two ranks (no sum over
+    # ranks) against the plain step on that half
+    csr = build_nfa_csr(l7_aut, device=dev)
+    s = l7_aut.num_states
+    b, length = 4, 4096
+    streams, bitmap, counts = tp_case(rng, l7_aut, l7_bytes, b, length, dev)
+    whole = (csr, streams, bitmap, counts, 0, s + 1)
+    got = hn.nfa_tp_scan_sharded(*whole)
+    step_err = max_abs_err(got, hn.nfa_tp_scan(csr, streams, bitmap, counts))
+    s_pad = -(-(s + 1) // 2) * 2
+    half = s_pad // 2
+    for lo in (0, half):
+        bm = torch.zeros((b, half), dtype=torch.bool, device=dev)
+        cnt = torch.zeros((b, half), dtype=torch.int32, device=dev)
+        bm[:, :min(half, s + 1 - lo)] = bitmap[:, lo:lo + half]
+        part = (csr, streams, bm, cnt, lo, s_pad)
+        step_err = max(step_err, max_abs_err(hn.nfa_tp_scan_sharded(*part),
+                                             hn.nfa_tp_scan_plain(*part)))
+    want, plain_ms = one_run_ms(lambda: hn.nfa_tp_scan_plain(*whole))
+    step_err = max(step_err, max_abs_err(got, want))
+    ms = event_ms(lambda: hn.nfa_tp_scan_sharded(*whole), 3)
+    # the (B, S_pad) int32 successor flags leave the kernel every byte: the
+    # sum over ranks reads them
+    bound = bound_ms((streams, csr.offsets, csr.targets, csr.class_of,
+                      csr.accept, bitmap, counts), (got[0], got[1])) \
+        + length * b * (s + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    check(step_err == 0, f"nfa_tp_step differs from K5 or its plain version "
+                         f"by {step_err}")
+    print(f"kernels: K5's sharded step (nfa_tp_step, a launch a byte) l7-corpus "
+          f"NFA, {b} streams x {length // 1024} KiB: bit-exact against K5 on "
+          f"every state and against plain on each half of S_pad={s_pad} "
+          f"(tolerance 0); {ms:.2f} ms ({ms / length * 1e3:.2f} us a byte), "
+          f"plain {plain_ms:.2f} ms, bound {bound:.5f} ms", flush=True)
+    step = {"max_abs_err": step_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": LIBRARY_MS,
+            "shape": f"l7-corpus NFA, {b} streams x {length // 1024} KiB"}
+    return entry, step
 
 
 def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
@@ -2155,12 +2214,14 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     from regex_fpga_tpu_torch.parallel.tp_scan import tp_route
     from regex_fpga_tpu_torch.ops.tables import build_nfa_tables
 
-    results["nfa_tp_scan"] = phase_k5(dev, snort_aut, snort_bytes, l7_aut,
-                                      l7_bytes)
+    results["nfa_tp_scan"], results["nfa_tp_step"] = phase_k5(
+        dev, snort_aut, snort_bytes, l7_aut, l7_bytes)
     work = os.path.join(ROOT, "build", "chip_smoke_parallel")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    reset_launches()
+    # the launches of the main path's own calls; their references and the
+    # single-device timings stay outside the counted blocks
+    launches = dict.fromkeys(launch_counters(), 0)
 
     # (a) corpus as a user runs it: 1 GiB of synthetic text and a tail
     t0 = time.perf_counter()
@@ -2217,9 +2278,11 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     try:
         for n, (label, kgram) in enumerate((("k=1", None), ("k-gram k=4", kg))):
             def run(chunks, store=None, depth=2):
-                return ingest.dist_resilient_scan(
-                    mesh, tables, chunks, kgram=kgram, blocks_per_shard=16384,
-                    start=tok.start, store=store, prefetch_depth=depth)
+                with counted(launches):
+                    return ingest.dist_resilient_scan(
+                        mesh, tables, chunks, kgram=kgram,
+                        blocks_per_shard=16384, start=tok.start, store=store,
+                        prefetch_depth=depth)
             run(ingest.iter_batch_chunks(corpus[:, :chunk], chunk))  # warm-up
             for depth in (2, 0):
                 copy_s.clear()
@@ -2267,13 +2330,21 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     maps = kgram_maps(kg).to(dev)
     bps = 16384
     refs = [native_walk(tables, row, tok.start) for row in text.cpu().numpy()]
+
+    def main_path(fn):
+        def call():
+            with counted(launches):
+                return fn()
+        return call
+
     calls = {
         "dfa_scan_fast_dist": (
-            lambda: dfa_scan_fast_dist(mesh, tables, classes, bps, tok.start),
+            main_path(lambda: dfa_scan_fast_dist(mesh, tables, classes, bps,
+                                                 tok.start)),
             lambda: dfa_scan_fast_multi(tables, classes, bps, starts)),
         "dfa_scan_kgram_dist": (
-            lambda: dfa_scan_kgram_dist(mesh, ta, None, text, bps, tok.start,
-                                        maps=maps),
+            main_path(lambda: dfa_scan_kgram_dist(mesh, ta, None, text, bps,
+                                                  tok.start, maps=maps)),
             lambda: [dfa_scan_kgram(ta, row, bps, tok.start, maps=maps)
                      for row in text]),
     }
@@ -2305,8 +2376,9 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     flows = np.stack([l7_bytes[o:o + MIB] for o in
                       np.random.default_rng(SEED + 9).integers(0, 63 * MIB, 64)])
     t0 = time.perf_counter()
-    per, totals = nfa_scan_dist(mesh, csr, flows)
-    torch.cuda.synchronize()
+    with counted(launches):
+        per, totals = nfa_scan_dist(mesh, csr, flows)
+        torch.cuda.synchronize()
     nd_s = time.perf_counter() - t0
     check(torch.equal(totals, per.sum(0, dtype=torch.int32)), "totals = column sums")
     ref_l7, _ = api.compile_ruleset(l7_aut, api.EngineConfig(), "lazy", dev) \
@@ -2317,10 +2389,11 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
           f"totals the column sums, counts equal the lazy host walk", flush=True)
     subsets = [l7_aut] + [prefix_automaton(l7_aut, k) for k in (200, 400, 600)]
     one_flow = flows[0]
+    stacked = stack_nfa_tables([build_nfa_tables(a, device=dev) for a in subsets])
     t0 = time.perf_counter()
-    multi = multi_ruleset_scan(mesh, stack_nfa_tables(
-        [build_nfa_tables(a, device=dev) for a in subsets]), one_flow)
-    torch.cuda.synchronize()
+    with counted(launches):
+        multi = multi_ruleset_scan(mesh, stacked, one_flow)
+        torch.cuda.synchronize()
     mr_s = time.perf_counter() - t0
     for i, a in enumerate(subsets):
         own = nfa_scan(build_nfa_csr(a, device=dev), one_flow)
@@ -2333,8 +2406,9 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     tp_mesh = make_tp_mesh(1, 1)
     l7_main = torch.as_tensor(flows, device=dev)
     t0 = time.perf_counter()
-    tp_counts, _ = nfa_scan_tp(tp_mesh, csr, l7_main)
-    torch.cuda.synchronize()
+    with counted(launches):
+        tp_counts, _ = nfa_scan_tp(tp_mesh, csr, l7_main)
+        torch.cuda.synchronize()
     tp_l7_s = time.perf_counter() - t0
     check(np.array_equal(tp_counts.cpu().numpy(), ref_l7), "K5 l7: the lazy walk")
     k4 = nfa_scan_batch(csr, l7_main, 128)
@@ -2343,19 +2417,17 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     s_csr = build_nfa_csr(snort_aut, device=dev)
     s_flows = tiled(snort_bytes, 132 * 64 * 1024).reshape(132, 64 * 1024)
     t0 = time.perf_counter()
-    s_counts, _ = nfa_scan_tp(tp_mesh, s_csr, s_flows)
-    torch.cuda.synchronize()
+    with counted(launches):
+        s_counts, _ = nfa_scan_tp(tp_mesh, s_csr, s_flows)
+        torch.cuda.synchronize()
     tp_s_s = time.perf_counter() - t0
     s_ref = np.stack([snort_ld.host_scan(f)[0] for f in s_flows])
     check(np.array_equal(s_counts.cpu().numpy(), s_ref),
           "K5 Snort 132 x 64 KiB: the native lazy walk")
-    launches = launch_counters()
-    print(f"parallel: launches {json.dumps(launches)}; nfa_scan_tp "
+    print(f"parallel: nfa_scan_tp "
           f"({tp_route(tp_mesh)}): l7 64 x 1 MiB {tp_l7_s * 1e3:.1f} ms (= K4 at "
           f"bound 128 and the lazy walk), Snort 132 x 64 KiB {tp_s_s * 1e3:.1f} "
           f"ms (= the native lazy walk)", flush=True)
-    for name in PARALLEL_PATH:
-        check(launches[name] > 0, f"{name} launched on the parallel path")
 
     # K5 alone at the main path's shapes, beside its bound and floor
     main = {}
@@ -2392,6 +2464,8 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     single = rank_program(1)
     both = spawn_ranks(rank_program, 2, "gloo", "cuda", args=(2,), timeout=600)
     for r, got in enumerate(both):
+        for k, v in got["launches"].items():
+            launches[k] += v
         for key in ("fast", "kgram"):
             check(got[key][2] and all(np.array_equal(a, b) for a, b in
                                       zip(got[key][:2], single[key][:2])),
@@ -2411,6 +2485,10 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
           f"{single['tp_route']}); every result equals world size 1 "
           f"({time.perf_counter() - t0:.1f} s with the spawn)", flush=True)
     shutil.rmtree(work, ignore_errors=True)
+    print(f"parallel: launches of the main path's own calls (both ranks of "
+          f"(d) summed) {json.dumps(launches)}", flush=True)
+    for name in PARALLEL_PATH:
+        check(launches[name] > 0, f"{name} launched on the parallel path")
     return launches
 
 

@@ -25,9 +25,10 @@ __all__ = ["BuildInfo", "build", "library", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--threads", "0",  # one compilation per source file, side by side
 )
 
 
@@ -52,8 +53,7 @@ def _nvcc() -> str:
 @functools.cache
 def build() -> BuildInfo:
     """Compile ``csrc/*.cu`` into one shared library (once per process, and
-    only when no library with the same source digest exists): one nvcc
-    process a source file, side by side, then one link."""
+    only when no library with the same source digest exists)."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
@@ -64,35 +64,17 @@ def build() -> BuildInfo:
         return BuildInfo(str(lib), 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    objs = BUILD_DIR / f"obj_{digest.hexdigest()[:16]}_{os.getpid()}"
-    objs.mkdir(exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
-    # one nvcc a source, all started together, then one link
-    procs = [(src, subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(objs / f"{src.stem}.o")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for src in sources]
-    log = ""
-    failed = []
-    for src, proc in procs:
-        out, _ = proc.communicate()
-        log += out
-        if proc.returncode != 0:
-            failed.append(f"{src.name}: exit code {proc.returncode}")
-    if not failed:
-        proc = subprocess.run(
-            [_nvcc(), *ARCH, "-shared", "-o", str(tmp),
-             *(str(objs / f"{src.stem}.o") for src in sources)],
-            capture_output=True, text=True)
-        log += proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            failed.append(f"link: exit code {proc.returncode}")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    shutil.rmtree(objs, ignore_errors=True)
-    if failed:
-        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{log}")
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
     os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
-    return BuildInfo(str(lib), seconds, log)
+    return BuildInfo(str(lib), seconds, proc.stdout + proc.stderr)
 
 
 @functools.cache
@@ -119,11 +101,13 @@ def library() -> ctypes.CDLL:
     lib.nfa_active_route.argtypes = [i, i, i, i, i]
     lib.nfa_tp_scan.argtypes = [p, ll, i, p, p, p, p, i, i, i, i, p, p, i, p]
     lib.nfa_tp_route.argtypes = [i, i, i, i]
+    lib.nfa_tp_step.argtypes = [p, ll, ll, i, p, p, p, p, i, i, p, ll, p, p, i, i, p]
     for fn in (lib.dfa_chain, lib.dfa_chain_counts, lib.dfa_chain_route,
                lib.dfa_chain_lanes_per_cta, lib.kgram_chain,
                lib.kgram_chain_route, lib.nfa_active_scan,
                lib.nfa_active_route, lib.smem_chase, lib.sync_chase, lib.dfa_block_fns,
-               lib.dfa_block_fns_route, lib.nfa_tp_scan, lib.nfa_tp_route):
+               lib.dfa_block_fns_route, lib.nfa_tp_scan, lib.nfa_tp_route,
+               lib.nfa_tp_step):
         fn.restype = i
     return lib
 

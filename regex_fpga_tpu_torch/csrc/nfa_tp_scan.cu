@@ -43,6 +43,18 @@
 //     barrier all T threads of the CTA set the queued rows' bits together.
 //   - The classes of the next T bytes are staged in shared memory once per
 //     T bytes.
+//
+// nfa_tp_step is the same scan with the states sharded over the ranks of a
+// model axis (tp_scan.py's step with more than one rank): one launch a byte,
+// because the next bitmap needs a sum over the ranks between two bytes. A
+// rank owns the states lo..lo+n-1; the launch reads their activity from the
+// previous byte's summed (B, s_pad) int32 successor flags (> 0 is active;
+// the start bitmap as int32 before the first byte), counts the accepting
+// ones, and writes a 1 at every successor of an active state into a fresh
+// (B, s_pad) vector, which the caller sums over the ranks before the next
+// launch. One CTA of 256 threads a stream and 256 states; warp w's lanes
+// test 32 consecutive states, then the warp walks each active lane's CSR row
+// together, a lane an edge, so a wide row costs ceil(K / 32) warp steps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -306,6 +318,69 @@ extern "C" int nfa_tp_scan(const uint8_t* streams, long long L, int B, const int
   if (p.csr_smem)
     return p.cnt_smem ? launch<true, true>(a, p, st) : launch<true, false>(a, p, st);
   return p.cnt_smem ? launch<false, true>(a, p, st) : launch<false, false>(a, p, st);
+}
+
+namespace {
+
+constexpr int STEP_THREADS = 256;
+
+struct StepArgs {
+  const uint8_t* streams;  // (B, L) contiguous
+  long long L, t;          // the byte t of every stream
+  const int* class_of;     // (256,)
+  const int* offsets;      // (C, S+2)
+  const int* targets;      // (E,), all < S
+  const uint8_t* accept;   // (S+1,)
+  int S, lo, n, s_pad;
+  const int* act;          // row b at act + b * act_stride, n entries
+  long long act_stride;
+  int* counts;             // (B, n) in/out
+  int* partial;            // (B, s_pad) out, zeroed before the launch
+};
+
+__global__ void __launch_bounds__(STEP_THREADS) nfa_tp_step_kernel(StepArgs a) {
+  const long long b = blockIdx.y;
+  const int i = blockIdx.x * STEP_THREADS + threadIdx.x;  // local state
+  const int lane = threadIdx.x & 31;
+  const int s = a.lo + i;
+  // states >= S (the sentinel, padding) are inert: cleared, never counted
+  const bool on = i < a.n && s < a.S && a.act[b * a.act_stride + i] > 0;
+  if (on && a.accept[s]) a.counts[b * a.n + i] += 1;
+  const int c = __ldg(a.class_of + a.streams[b * a.L + a.t]);
+  const int* off = a.offsets + (long long)c * (a.S + 2);
+  int* out = a.partial + b * a.s_pad;
+  for (unsigned m = __ballot_sync(0xffffffffu, on); m; m &= m - 1u) {
+    const int src = s - lane + __ffs(m) - 1;
+    const int lo = __ldg(off + src), hi = __ldg(off + src + 1);
+    for (int k = lo + lane; k < hi; k += 32) out[__ldg(a.targets + k)] = 1;
+  }
+}
+
+}  // namespace
+
+// One byte of the sharded scan (tp_scan.py's step on one rank of the model
+// axis): streams (B, L) uint8 contiguous, t the byte; class_of (256,),
+// offsets (C, S+2) and targets (E,) int32 (targets < S); accept (S+1,)
+// uint8; the rank's states are lo..lo+n-1 of s_pad; act row b at
+// act + b * act_stride (n int32, > 0 = active); counts (B, n) int32 in/out;
+// partial (B, s_pad) int32 out: 1 at every successor of an active state,
+// 0 elsewhere. Returns the CUDA error code (0 on success).
+extern "C" int nfa_tp_step(const uint8_t* streams, long long L, long long t, int B,
+                           const int* class_of, const int* offsets, const int* targets,
+                           const uint8_t* accept, int S, int lo, const int* act,
+                           long long act_stride, int* counts, int* partial, int n,
+                           int s_pad, void* stream) {
+  if (B < 0 || B > 65535 || t < 0 || t >= L || S < 0 || lo < 0 || n < 0 || lo + n > s_pad ||
+      s_pad < S + 1 || act_stride < n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(partial, 0, (size_t)B * s_pad * sizeof(int), st);
+  if (e != cudaSuccess || B == 0 || n == 0) return (int)e;
+  StepArgs a = {streams, L, t, class_of, offsets, targets, accept, S, lo, n, s_pad,
+                act, act_stride, counts, partial};
+  const dim3 grid((n + STEP_THREADS - 1) / STEP_THREADS, B);
+  nfa_tp_step_kernel<<<grid, STEP_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // Where a launch keeps its data: bit 0 = CSR in shared memory (16-bit), bit 1

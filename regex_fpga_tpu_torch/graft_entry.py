@@ -4,8 +4,8 @@ The counterpart of the repository's ``__graft_entry__.py``. ``entry()``
 returns a function and its arguments: one scan of the fast DFA engine (K1's
 chain pass) over the GPT-2 pre-split tokenizer DFA.
 
-``dryrun_multichip(n)`` starts n ranks (``spawn_ranks``: gloo on the CPU, or
-NCCL when n cards are visible), builds a (data x seq) mesh over them and
+``dryrun_multichip(n)`` starts n ranks (``spawn_ranks``: NCCL on n cards,
+or gloo on the CPU when the caller passes ``device="cpu"``), builds a (data x seq) mesh over them and
 runs every distributed engine once on small shapes, each held to a serial
 reference: the fast and the k-gram DFA scans, chunked ingest with a
 checkpoint resumed across a chunk boundary, the data-parallel NFA scan on the
@@ -189,13 +189,26 @@ def _dryrun_rank(n_devices: int, device: str, work: str) -> str:
             f"S={sizes[0]}..{sizes[-1]}, {ep_len} B, oracle-exact]")
 
 
-def dryrun_multichip(n_devices: int) -> None:
-    """Run the dry run on ``n_devices`` ranks: NCCL on the cards when that
-    many are visible, else gloo on the CPU. Prints rank 0's summary."""
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
+    """Run the dry run on ``n_devices`` ranks: NCCL, a card a rank, by
+    default (raises when fewer cards are visible); gloo on the CPU when
+    ``device="cpu"``. Prints rank 0's summary."""
     from .parallel.multihost import spawn_ranks
 
-    cuda = torch.cuda.is_available() and n_devices <= torch.cuda.device_count()
-    backend, device = ("nccl", "cuda") if cuda else ("gloo", "cpu")
+    if n_devices < 1:
+        raise ValueError("the dry run needs at least one rank")
+    device = torch.device(device).type
+    if device == "cuda":
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_devices > visible:
+            raise RuntimeError(f"dryrun_multichip({n_devices}) needs {n_devices} "
+                               f"CUDA cards, {visible} visible; pass "
+                               f"device='cpu' for gloo ranks on the CPU")
+        backend = "nccl"
+    elif device == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"no dry run on {device}")
     work = tempfile.mkdtemp(prefix="dryrun_")
     try:
         lines = spawn_ranks(_dryrun_rank, n_devices, backend, device,

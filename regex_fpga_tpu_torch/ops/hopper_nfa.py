@@ -21,9 +21,11 @@ per byte the accepting states of the bitmap count and the union of their
 successors becomes the next bitmap. It is the loop of
 ``regex_fpga_tpu/parallel/tp_scan.py::nfa_scan_tp`` with the model axis of
 size one, bit for bit; its kernel is ``csrc/nfa_tp_scan.cu`` and reads the
-same CSR (``nfa_tp_route``). ``nfa_tp_scan_plain`` is the JAX step in torch
-ops, also over a slice of the states with a cross-rank sum of the
-successors: the route that ``parallel.tp_scan`` takes on more than one rank.
+same CSR (``nfa_tp_route``). ``nfa_tp_scan_sharded`` is the same scan over
+a rank's slice of the states, with a cross-rank sum of the successors
+between two bytes: the route that ``parallel.tp_scan`` takes on more than
+one rank, one launch of ``nfa_tp_step`` (same file) a byte.
+``nfa_tp_scan_plain`` is the JAX step in torch ops, for either.
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
 only for CPU tensors.
@@ -39,10 +41,10 @@ from .tables import NfaCsr
 
 __all__ = ["LAUNCHES", "nfa_active_route", "nfa_active_scan",
            "nfa_active_scan_plain", "nfa_tp_route", "nfa_tp_scan",
-           "nfa_tp_scan_plain"]
+           "nfa_tp_scan_plain", "nfa_tp_scan_sharded"]
 
 #: Kernel launches since the last reset.
-LAUNCHES = {"nfa_active_scan": 0, "nfa_tp_scan": 0}
+LAUNCHES = {"nfa_active_scan": 0, "nfa_tp_scan": 0, "nfa_tp_step": 0}
 
 
 def _check_csr(csr: NfaCsr, dev, **tensors) -> None:
@@ -214,9 +216,8 @@ def nfa_tp_scan(csr: NfaCsr, streams, bitmap, counts):
         return nfa_tp_scan_plain(csr, streams, bitmap, counts)
     if streams.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {streams.device}")
+    _check_targets(csr)
     tg = csr.targets
-    if tg.numel() and bool(((tg < 0) | (tg >= s)).any()):
-        raise ValueError(f"CSR targets must lie in [0, {s})")
     b, length = streams.shape
     n = bitmap.shape[1]
     dev = streams.device
@@ -236,6 +237,69 @@ def nfa_tp_scan(csr: NfaCsr, streams, bitmap, counts):
         )
     _build.check(rc, "nfa_tp_scan")
     return out, _unpack_bits(words, n)
+
+
+def _check_targets(csr: NfaCsr) -> None:
+    s = csr.num_states
+    tg = csr.targets
+    if tg.numel() and bool(((tg < 0) | (tg >= s)).any()):
+        raise ValueError(f"CSR targets must lie in [0, {s})")
+
+
+def nfa_tp_scan_sharded(csr: NfaCsr, streams, bitmap, counts, lo: int,
+                        s_pad: int, all_reduce=None):
+    """K5 over one rank's slice of the states. ``bitmap`` (B, n) bool and
+    ``counts`` (B, n) int32 hold the states lo..lo+n-1 of ``s_pad``. Per
+    byte: the accepting active states count, the successors of the active
+    states are flagged in a (B, s_pad) int32 vector, ``all_reduce`` (when
+    given) sums it over the ranks in place, and its slice > 0 is the next
+    bitmap. CUDA tensors take one launch of ``nfa_tp_step`` a byte, CPU
+    tensors ``nfa_tp_scan_plain``. Returns (counts (B, n) int32, bitmap
+    (B, n) bool); the inputs are not modified."""
+    _check_tp_args(csr, streams, bitmap, counts)
+    s = csr.num_states
+    b, length = streams.shape
+    n = bitmap.shape[1]
+    if lo < 0 or lo + n > s_pad or s_pad < s + 1:
+        raise ValueError(f"states {lo}..{lo + n - 1} do not lie in an s_pad "
+                         f"of {s_pad} >= {s + 1}")
+    if streams.device.type == "cpu":
+        return nfa_tp_scan_plain(csr, streams, bitmap, counts, lo, s_pad,
+                                 all_reduce)
+    if streams.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {streams.device}")
+    _check_targets(csr)
+    if b > 65535:
+        raise ValueError("at most 65,535 streams a launch")
+    dev = streams.device
+    out = counts.contiguous().clone()
+    if length == 0:
+        return out, bitmap.clone()
+    streams = streams.contiguous()
+    offsets, targets = csr.offsets.contiguous(), csr.targets.contiguous()
+    class_of, accept = csr.class_of.contiguous(), csr.accept.contiguous()
+    act = bitmap.to(torch.int32).contiguous()
+    act_ptr, stride = act.data_ptr(), n
+    bufs = [torch.empty((b, s_pad), dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+        for t in range(length):
+            partial = bufs[t % 2]  # the other holds this byte's active set
+            LAUNCHES["nfa_tp_step"] += 1
+            rc = lib.nfa_tp_step(
+                streams.data_ptr(), length, t, b, class_of.data_ptr(),
+                offsets.data_ptr(), targets.data_ptr(), accept.data_ptr(), s,
+                lo, act_ptr, stride, out.data_ptr(), partial.data_ptr(), n,
+                s_pad, cuda_stream)
+            _build.check(rc, "nfa_tp_step")
+            if all_reduce is not None:
+                all_reduce(partial)
+            act_ptr = partial.data_ptr() + lo * partial.element_size()
+            stride = s_pad
+    # no CSR edge reaches the sentinel S, so the slice needs no clearing
+    return out, partial[:, lo:lo + n] > 0
 
 
 def nfa_tp_route(csr: NfaCsr) -> dict:

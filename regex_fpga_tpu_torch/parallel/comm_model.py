@@ -2,7 +2,7 @@
 
 The counterpart of ``regex_fpga_tpu/parallel/comm_model.py``, with the same
 byte formulas. Every byte the distributed scans move per collective follows
-from the shapes; ``mesh.COLLECTIVES`` records what a scan really issued, and
+from the shapes; ``mesh.record_collectives`` records what a scan really issued, and
 the tests hold the two to each other.
 
 Collective inventory of ``dfa_scan_fast_dist``, per rank per scan, with

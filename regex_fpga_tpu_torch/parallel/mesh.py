@@ -12,9 +12,10 @@ rank's view of a 2-D grid of ranks laid out row-major (rank = i * n1 + j):
 
 Every collective of the scans goes through the helpers below: ``ring_shift``
 (JAX's ``ppermute`` with the forward pairs i -> i + 1 mod n), ``all_reduce``
-(a sum, ``psum``) and ``all_gather``, each over one axis of the mesh. Each
-call is recorded in ``COLLECTIVES`` with its payload, so that the tests can
-hold the scans to ``comm_model``.
+(a sum, ``psum``) and ``all_gather``, each over one axis of the mesh.
+Inside a ``record_collectives()`` block each call is recorded with its
+payload, so that the tests can hold the scans to ``comm_model``; outside
+one nothing is kept.
 
 Where the tensors go: on NCCL they stay on the card. Gloo takes host tensors
 only, so a CUDA tensor is copied to host memory, exchanged and copied back
@@ -24,16 +25,16 @@ world size is 1 and every collective is the identity.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["COLLECTIVES", "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "Collective",
-           "Mesh", "all_gather", "all_reduce", "collective_route", "make_mesh",
-           "make_tp_mesh", "reset_collectives", "ring_shift"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "Collective", "Mesh",
+           "all_gather", "all_reduce", "collective_route", "make_mesh",
+           "make_tp_mesh", "record_collectives", "ring_shift"]
 
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
@@ -45,15 +46,21 @@ class Collective(NamedTuple):
     axis: str          # the mesh axis it ran over
     in_bytes: int      # payload this rank contributed
     out_bytes: int     # payload this rank received (all_gather: all members)
-    seconds: float     # host time of the call, host copies included
 
 
-#: Every collective since the last ``reset_collectives``, in call order.
-COLLECTIVES: list[Collective] = []
+_LOG: list | None = None  # the innermost record_collectives() block's list
 
 
-def reset_collectives() -> None:
-    COLLECTIVES.clear()
+@contextlib.contextmanager
+def record_collectives():
+    """Yields a list that receives every collective issued in the block,
+    in call order, as ``Collective`` tuples."""
+    global _LOG
+    outer, _LOG = _LOG, []
+    try:
+        yield _LOG
+    finally:
+        _LOG = outer
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -144,14 +151,14 @@ def _host(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _record(op, axis, x, out_bytes, t0) -> None:
-    COLLECTIVES.append(Collective(op, axis, x.numel() * x.element_size(),
-                                  out_bytes, time.perf_counter() - t0))
+def _record(op, axis, x, out_bytes) -> None:
+    if _LOG is not None:
+        _LOG.append(Collective(op, axis, x.numel() * x.element_size(),
+                               out_bytes))
 
 
 def ring_shift(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     """Rank i along ``axis`` receives rank i-1's ``x`` (cyclically)."""
-    t0 = time.perf_counter()
     group, ranks = mesh.groups[axis]
     n = len(ranks)
     out = x
@@ -164,26 +171,24 @@ def ring_shift(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         out = recv.to(x.device, x.dtype)
-    _record("ring_shift", axis, x, x.numel() * x.element_size(), t0)
+    _record("ring_shift", axis, x, x.numel() * x.element_size())
     return out
 
 
 def all_reduce(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over ``axis``, written into ``x`` and returned."""
-    t0 = time.perf_counter()
     group, ranks = mesh.groups[axis]
     if len(ranks) > 1:
         buf = _host(mesh, x)
         dist.all_reduce(buf, group=group)
         if buf is not x:
             x.copy_(buf)
-    _record("all_reduce", axis, x, x.numel() * x.element_size(), t0)
+    _record("all_reduce", axis, x, x.numel() * x.element_size())
     return x
 
 
 def all_gather(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     """(n, *x.shape): every member's ``x`` along ``axis``, in axis order."""
-    t0 = time.perf_counter()
     group, ranks = mesh.groups[axis]
     if len(ranks) > 1:
         buf = _host(mesh, x)
@@ -192,5 +197,5 @@ def all_gather(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
         out = torch.stack(parts).to(x.device, x.dtype)
     else:
         out = x[None]
-    _record("all_gather", axis, x, out.numel() * out.element_size(), t0)
+    _record("all_gather", axis, x, out.numel() * out.element_size())
     return out

@@ -14,10 +14,13 @@ Two routes:
 
 - one rank on the model axis: the whole byte loop is one launch of K5
   (``hopper_nfa.nfa_tp_scan``, ``csrc/nfa_tp_scan.cu``);
-- more than one: each byte needs the cross-rank sum, so each rank runs the
-  plain step (``nfa_tp_scan_plain``) on its own device with one
-  ``all_reduce`` over ``model`` a byte. The per-byte collective forces this
-  route; it is no fallback.
+- more than one: each byte needs the cross-rank sum, so each rank launches
+  K5's step (``hopper_nfa.nfa_tp_scan_sharded``, ``nfa_tp_step``) once a
+  byte on its own device, with one ``all_reduce`` over ``model`` between
+  two launches. The per-byte collective forces this route; it is no
+  fallback.
+
+CPU tensors take the plain step (``nfa_tp_scan_plain``) on either route.
 
 The scan reads the per-class CSR that K4 reads (``NfaCsr``); a dense
 ``NfaTables`` is converted to it.
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.hopper_nfa import nfa_tp_scan, nfa_tp_scan_plain
+from ..ops.hopper_nfa import nfa_tp_scan, nfa_tp_scan_sharded
 from ..ops.tables import NfaCsr, NfaTables, nfa_csr_from_tables
 from .dist_scan import _data_rows, _gather_data, _tensor
 from .mesh import MODEL_AXIS, Mesh, all_gather, all_reduce
@@ -61,8 +64,9 @@ def tp_route(mesh: Mesh) -> str:
     n_model = mesh.shape[MODEL_AXIS]
     if n_model == 1:
         return "K5 (nfa_tp_scan): the whole byte loop in one launch"
-    return (f"plain step on each of {n_model} model ranks with one all_reduce "
-            f"over model a byte: the per-byte cross-rank sum forces it")
+    return (f"K5's step (nfa_tp_step) on each of {n_model} model ranks, one "
+            f"launch and one all_reduce over model a byte: the per-byte "
+            f"cross-rank sum forces it")
 
 
 def nfa_scan_tp(mesh: Mesh, tables: NfaCsr | NfaTables, streams,
@@ -100,8 +104,8 @@ def nfa_scan_tp(mesh: Mesh, tables: NfaCsr | NfaTables, streams,
     if n_model == 1:
         counts, finals = nfa_tp_scan(csr, streams[rows], bm, cnt)
     else:
-        counts, finals = nfa_tp_scan_plain(
-            csr, streams[rows], bm, cnt, lo=lo, s_pad=s_pad,
+        counts, finals = nfa_tp_scan_sharded(
+            csr, streams[rows], bm, cnt, lo, s_pad,
             all_reduce=lambda x: all_reduce(mesh, MODEL_AXIS, x))
 
     def gather(x):  # (b_loc, S_loc) slices -> (B, S_pad)

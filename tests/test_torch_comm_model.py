@@ -138,7 +138,7 @@ def test_four_gloo_ranks_collectives_match_model(four_ranks, i, scan):
 def test_dryrun_multichip_on_four_gloo_ranks(capsys):
     from regex_fpga_tpu_torch.graft_entry import dryrun_multichip
 
-    dryrun_multichip(4)
+    dryrun_multichip(4, device="cpu")
     out = capsys.readouterr().out
     assert "dryrun_multichip ok: mesh=2x2 (gloo on cpu)" in out
     assert "tp NFA [S=600" in out and "oracle-exact" in out

@@ -663,3 +663,36 @@ def test_nfa_tp_scan_resumes(cuda, name):
             torch.zeros((2, s + 1), dtype=torch.int32, device=cuda))
         assert not bool(k4[2].any())
         assert torch.equal(whole[0][:, :s], k4[0][:, :s])
+
+
+@pytest.mark.parametrize("name", list(TP_NFAS))
+def test_nfa_tp_step_matches_plain(cuda, name):
+    """K5's sharded step, a launch a byte: on every state it equals the
+    one-launch K5; on each half of the states of an S_pad rounded up to
+    two ranks (no sum over ranks) it equals the plain step on that half,
+    the sentinel and padding bits of the start bitmap among them."""
+    rng = np.random.default_rng(6)
+    aut, data = TP_NFAS[name](rng)
+    s = aut.num_states
+    csr = build_nfa_csr(aut, device=cuda)
+    streams, bitmap, counts = tp_inputs(rng, aut, data, 3, 200, cuda)
+    n_all = bitmap.shape[1]
+    before = hopper_nfa.LAUNCHES["nfa_tp_step"]
+    got = hopper_nfa.nfa_tp_scan_sharded(csr, streams, bitmap, counts, 0, n_all)
+    assert hopper_nfa.LAUNCHES["nfa_tp_step"] == before + 200
+    whole = hopper_nfa.nfa_tp_scan(csr, streams, bitmap, counts)
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
+    s_pad = -(-(s + 1) // 2) * 2
+    half = s_pad // 2
+    for lo in (0, half):
+        cols = slice(lo, lo + half)
+        bm = torch.zeros((3, half), dtype=torch.bool, device=cuda)
+        cnt = torch.zeros((3, half), dtype=torch.int32, device=cuda)
+        width = min(half, n_all - lo)
+        bm[:, :width], cnt[:, :width] = bitmap[:, cols], counts[:, cols]
+        got = hopper_nfa.nfa_tp_scan_sharded(csr, streams, bm, cnt, lo, s_pad)
+        want = hopper_nfa.nfa_tp_scan_plain(csr, streams, bm, cnt, lo, s_pad)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

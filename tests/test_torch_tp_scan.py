@@ -185,3 +185,27 @@ def test_pack_bits_round_trip():
         words = hopper_nfa._pack_bits(bm)
         assert words.dtype == torch.int32 and words.shape == (3, -(-n // 32))
         assert torch.equal(hopper_nfa._unpack_bits(words, n), bm)
+
+
+def test_sharded_scan_on_the_cpu_is_the_plain_step():
+    """CPU tensors take the plain step, on any slice of the states; a slice
+    outside S_pad, or an S_pad without the sentinel, is refused."""
+    rng = np.random.default_rng(11)
+    aut = random_nfa(rng, 40, 250, 4)
+    s = aut.num_states
+    csr = build_nfa_csr(aut)
+    streams = torch.as_tensor(rng.integers(0, 256, size=(3, 90)).astype(np.uint8))
+    s_pad, half = 42, 21
+    before = hopper_nfa.LAUNCHES["nfa_tp_step"]
+    bm = torch.as_tensor(rng.random((3, half)) < 0.2)
+    cnt = torch.as_tensor(rng.integers(0, 9, size=(3, half)).astype(np.int32))
+    for lo in (0, half):
+        got = hopper_nfa.nfa_tp_scan_sharded(csr, streams, bm, cnt, lo, s_pad)
+        want = hopper_nfa.nfa_tp_scan_plain(csr, streams, bm, cnt, lo, s_pad)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert hopper_nfa.LAUNCHES["nfa_tp_step"] == before
+    with pytest.raises(ValueError):
+        hopper_nfa.nfa_tp_scan_sharded(csr, streams, bm, cnt, 22, s_pad)
+    with pytest.raises(ValueError):
+        hopper_nfa.nfa_tp_scan_sharded(csr, streams, bm, cnt, 0, s)

@@ -154,9 +154,9 @@ def audit(n_data, n_seq, table, accept, classes, classes_k, kg_table,
                                               torch.as_tensor(classes_k),
                                               blocks_per_shard=bps,
                                               overlap=overlap)):
-        M.reset_collectives()
-        conv = run()[2]
-        out.append(([c[:4] for c in M.COLLECTIVES], conv))
+        with M.record_collectives() as log:
+            conv = run()[2]
+        out.append(([tuple(c) for c in log], conv))
     return out
 
 
