@@ -82,9 +82,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    router's priors fitted from this run beside the committed ones;
 8. parallel/ on torch.distributed and K5 (nfa_tp_scan): K5 against its
    plain version on the l7-corpus NFA (4 x 16 KiB) and the Snort-corpus NFA
-   (4 x 2 KiB), two chunks against one run, and K5's sharded step
-   (nfa_tp_step, the multi-rank route) on l7 (4 x 4 KiB) against K5 and
-   its plain version; then, counting the launches of the main path's own
+   (4 x 2 KiB), two chunks against one run; K5 and its step on random NFAs
+   of 1,023, 1,024 and 1,025 states (both bitmap routes) and one with every
+   state active on every byte, over 301 streams of 333 bytes and 5 of 0
+   bytes; K5's sharded step (nfa_tp_step, the multi-rank route) on l7 (4 x
+   4 KiB) against K5 and its plain version; each with its route; then, counting the launches of the main path's own
    calls only (not their references), the CLI's corpus as a subprocess over 1 GiB of synthetic text
    and a 12,345-byte tail (held to a native serial walk); in process with
    an NCCL group of one rank, dist_resilient_scan over 4 streams x 256 MiB
@@ -96,14 +98,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    multi_ruleset_scan over four l7 rulesets and nfa_scan_tp (K5) over the
    l7 flows (held to K4 and the lazy walk) and over 132 flows of 64 KiB of
    Snort traffic (held to the native lazy walk); K5's time at both shapes
-   beside its bound and its floor (bytes x one dependent shared load and a
-   CTA barrier, csrc/smem_chase.cu's sync_chase); and last two ranks on the
-   one card over gloo (fast and k-gram scans on a (1, 2) seq mesh, the
-   multi-rank nfa_scan_tp on a (1, 2) model mesh: a launch of K5's step and
-   an all_reduce a byte), each equal to world size 1;
+   beside the first design's, its bound and its floor (bytes x one
+   dependent shared load and the barrier of one warp, csrc/smem_chase.cu's
+   sync_chase); and last two ranks on the one card over gloo (fast and
+   k-gram scans on a (1, 2) seq mesh, the multi-rank nfa_scan_tp on a (1, 2)
+   model mesh: a launch of K5's step and an all_reduce a byte), each equal
+   to world size 1;
 9. the kernels JSON line, then {"ok": true, "device": ...} as the last line.
 
 ``--out DIR`` also writes nvcc's report and the results there.
+``--tp-ranks N`` runs only phase 1 and phase 8's multi-rank scans (rank_program)
+on N NCCL ranks, a card each, against world size 1 (on a machine with N
+cards).
 ``--profile`` adds, after phase 6, one torch.profiler run of each API call
 that uses the card (device time in copies and in kernels, and the idle share
 of the call's wall time) and the host-to-device copy of 64 MiB from pageable
@@ -2082,14 +2088,60 @@ def rank_program(n: int) -> dict:
     flows = np.stack([l7[:4096], l7[20_000:24_096]])
     tp_mesh = make_tp_mesh(n_model=n)
     out["tp_route"] = tp_route(tp_mesh)
+    csr = build_nfa_csr(l7_corpus_nfa(), device=dev)
+    # a short call first: the group's first collective sets up its
+    # communicator, which the timed call should not pay
+    nfa_scan_tp(tp_mesh, csr, flows[:, :64])
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    counts, bitmap = nfa_scan_tp(tp_mesh, build_nfa_csr(l7_corpus_nfa(), device=dev),
-                                 flows)
+    counts, bitmap = nfa_scan_tp(tp_mesh, csr, flows)
     torch.cuda.synchronize()
     out["tp"] = (counts.cpu().numpy(), bitmap.cpu().numpy(),
                  time.perf_counter() - t0)
     out["launches"] = {k: v - before[k] for k, v in launch_counters().items()}
     return out
+
+
+def check_ranks(ranks, single, label: str, t0: float) -> None:
+    """Every rank of ``rank_program(n)`` equals world size 1; prints the
+    times (the multi-rank nfa_scan_tp: a launch of K5's step and an
+    all_reduce a byte)."""
+    n = len(ranks)
+    for r, got in enumerate(ranks):
+        for key in ("fast", "kgram"):
+            check(got[key][2] and all(np.array_equal(a, b) for a, b in
+                                      zip(got[key][:2], single[key][:2])),
+                  f"rank {r} {key} on a (1, {n}) seq mesh: world size 1")
+        # S_pad rounds S + 1 up to the model ranks: compare the states and
+        # the sentinel slot, and the padding is clear
+        s1 = single["tp"][1].shape[1]
+        check(np.array_equal(got["tp"][0], single["tp"][0])
+              and np.array_equal(got["tp"][1][:, :s1], single["tp"][1])
+              and not got["tp"][1][:, s1:].any(),
+              f"rank {r} nfa_scan_tp on a (1, {n}) model mesh: world size 1")
+    tp_s = ranks[0]["tp"][2]
+    print(f"parallel: {label} ({ranks[0]['route']}): fast "
+          f"{ranks[0]['fast'][3]:.2f} s, k-gram {ranks[0]['kgram'][3]:.2f} s "
+          f"over 2 x 32 MiB on a (1, {n}) seq mesh; nfa_scan_tp on a (1, {n}) "
+          f"model mesh ({ranks[0]['tp_route']}) {tp_s:.3f} s over 2 x 4 KiB "
+          f"({tp_s / 4096 * 1e3:.3f} ms a byte; world size 1: "
+          f"{single['tp'][2]:.3f} s, {single['tp_route']}); every result "
+          f"equals world size 1 ({time.perf_counter() - t0:.1f} s with the "
+          f"spawn)", flush=True)
+
+
+def tp_ranks(n: int) -> None:
+    """``--tp-ranks N``: ``rank_program`` on N NCCL ranks, a card each (the
+    multi-rank nfa_scan_tp: K5's step and an NCCL all_reduce a byte),
+    against world size 1."""
+    from regex_fpga_tpu_torch.parallel.multihost import spawn_ranks
+
+    check(torch.cuda.device_count() >= n,
+          f"{n} NCCL ranks need {n} cards, {torch.cuda.device_count()} visible")
+    t0 = time.perf_counter()
+    single = rank_program(1)
+    ranks = spawn_ranks(rank_program, n, "nccl", "cuda", args=(n,), timeout=600)
+    check_ranks(ranks, single, f"{n} NCCL ranks, a card each", t0)
 
 
 def tp_case(rng, aut, corpus: np.ndarray, b: int, length: int, dev):
@@ -2103,12 +2155,101 @@ def tp_case(rng, aut, corpus: np.ndarray, b: int, length: int, dev):
     return streams, bitmap, torch.zeros((b, s + 1), dtype=torch.int32, device=dev)
 
 
+def random_nfa(rng, n_states: int, n_edges: int, n_bytes: int,
+               self_loops: bool = False):
+    """A seeded random CSR NFA over the first ``n_bytes`` byte values: a
+    tenth of its states accept and have no out-edges of their own; with
+    ``self_loops`` every state also loops to itself on every byte, so that
+    from an all-active start every state stays active."""
+    from regex_fpga_tpu_torch.models import CsrAutomaton
+
+    acc = rng.choice(np.arange(1, n_states), size=n_states // 10, replace=False)
+    src = rng.choice(np.setdiff1d(np.arange(n_states), acc), size=n_edges)
+    chars = rng.integers(0, n_bytes, size=n_edges)
+    tgts = rng.integers(0, n_states, size=n_edges)
+    if self_loops:
+        src = np.concatenate([src, np.repeat(np.arange(n_states), 256)])
+        chars = np.concatenate([chars, np.tile(np.arange(256), n_states)])
+        tgts = np.concatenate([tgts, np.repeat(np.arange(n_states), 256)])
+    order = np.argsort(src, kind="stable")
+    return CsrAutomaton(
+        offsets=np.searchsorted(src[order], np.arange(n_states + 1)).astype(np.int64),
+        trans_char=chars[order].astype(np.uint8),
+        trans_target=tgts[order].astype(np.int32))
+
+
+def route_text(route: dict) -> str:
+    """K5's route (hopper_nfa.nfa_tp_route) in words."""
+    bitmap = ("a word a lane in registers" if route["bitmap"] == "register"
+              else "in shared memory with a list of its non-zero words")
+    return (f"{route['warps_per_cta']} warp(s) a CTA, a warp a stream; bitmap "
+            f"{bitmap}; edges: {route['edges']}; the start state's successors: "
+            f"{route['start']}; counters "
+            f"{'shared' if route['counters_smem'] else 'global'}")
+
+
+def k5_edges(dev, rng):
+    """K5 and its step against their plain versions, tolerance 0, on random
+    NFAs on both sides of the register/list boundary (S = 1,023, 1,024,
+    1,025: W = 32, 32, 33 words) and one in which every state is active on
+    every byte (the word list full), each over 301 streams (more than the
+    132 SMs, not a multiple of the warps a CTA) of 333 bytes (not a
+    multiple of 32) and over 5 streams of 0 bytes, from random start
+    carries with the sentinel bit set; the step on each half of an S_pad of
+    two ranks. Returns the largest difference."""
+    from regex_fpga_tpu_torch.ops import hopper_nfa as hn
+    from regex_fpga_tpu_torch.ops.tables import build_nfa_csr
+
+    err = 0
+    for label, aut in (
+            ("S=1,023", random_nfa(rng, 1023, 4000, 8)),
+            ("S=1,024", random_nfa(rng, 1024, 4000, 8)),
+            ("S=1,025", random_nfa(rng, 1025, 4000, 8)),
+            ("all active, S=1,100", random_nfa(rng, 1100, 3300, 4, True))):
+        csr = build_nfa_csr(aut, device=dev)
+        s = aut.num_states
+        s_pad = -(-(s + 1) // 2) * 2
+        half = s_pad // 2
+        seen = []
+        for b, length in ((301, 333), (5, 0)):
+            route = hn.nfa_tp_route(csr, b)
+            streams = torch.as_tensor(
+                rng.integers(0, 8, size=(b, length)).astype(np.uint8), device=dev)
+            bitmap = torch.as_tensor(rng.random((b, s + 1)) < 0.02, device=dev)
+            bitmap[:, 0] = True
+            bitmap[:, s] = True  # the sentinel: inert, cleared by the first byte
+            if label.startswith("all active"):
+                bitmap[:, :s] = True
+            counts = torch.as_tensor(
+                rng.integers(0, 1000, size=(b, s + 1)).astype(np.int32), device=dev)
+            got = hn.nfa_tp_scan(csr, streams, bitmap, counts)
+            err = max(err, max_abs_err(got, hn.nfa_tp_scan_plain(
+                csr, streams, bitmap, counts)))
+            for lo in (0, half):
+                bm = torch.zeros((b, half), dtype=torch.bool, device=dev)
+                cnt = torch.zeros((b, half), dtype=torch.int32, device=dev)
+                width = min(half, s + 1 - lo)
+                bm[:, :width] = bitmap[:, lo:lo + width]
+                cnt[:, :width] = counts[:, lo:lo + width]
+                part = (csr, streams, bm, cnt, lo, s_pad)
+                err = max(err, max_abs_err(hn.nfa_tp_scan_sharded(*part),
+                                           hn.nfa_tp_scan_plain(*part)))
+            seen.append(f"{b} x {length} B: {route_text(route)}")
+        print(f"kernels: K5 and its step, {label} NFA (C={csr.num_classes}, "
+              f"E={csr.targets.shape[0]}): {'; '.join(seen)}; counts and "
+              f"bitmaps bit-exact against plain (tolerance 0), the step on "
+              f"each half of S_pad={s_pad}", flush=True)
+    check(err == 0, f"K5 or its step differs from plain by {err} at the edges")
+    return err
+
+
 def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
     """K5 against its plain version at the check shapes (l7 4 x 16 KiB,
     Snort 4 x 2 KiB), bit for bit, and the resume carries (two chunks equal
-    one run); K5's sharded step (l7 4 x 4 KiB) against K5 and against its
-    plain version on each half of the states. Returns the kernels-line
-    entries of nfa_tp_scan and nfa_tp_step (times at the l7 check shapes)."""
+    one run); then the edge shapes (``k5_edges``); K5's sharded step (l7 4 x
+    4 KiB) against K5 and against its plain version on each half of the
+    states. Returns the kernels-line entries of nfa_tp_scan and nfa_tp_step
+    (times at the l7 check shapes)."""
     from regex_fpga_tpu_torch.ops import hopper_nfa as hn
     from regex_fpga_tpu_torch.ops.tables import build_nfa_csr
 
@@ -2118,7 +2259,7 @@ def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
             ("l7-corpus", l7_aut, l7_bytes, 4, 16 * 1024),
             ("Snort-corpus", snort_aut, snort_bytes, 4, 2 * 1024)):
         csr = build_nfa_csr(aut, device=dev)
-        route = hn.nfa_tp_route(csr)
+        route = hn.nfa_tp_route(csr, b)
         streams, bitmap, counts = tp_case(rng, aut, corpus, b, length, dev)
         got = hn.nfa_tp_scan(csr, streams, bitmap, counts)
         want, plain_ms = one_run_ms(
@@ -2133,11 +2274,9 @@ def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
         bound = bound_ms((streams, csr.offsets, csr.targets, csr.class_of,
                           csr.accept, words, counts), (got[0], words))
         print(f"kernels: K5 {label} NFA S={aut.num_states} C={csr.num_classes} "
-              f"E={csr.targets.shape[0]}, CSR "
-              f"{'shared (uint16)' if route['csr_smem'] else 'global'}, counters "
-              f"{'shared' if route['counters_smem'] else 'global'}, "
-              f"{route['threads']} threads a stream; {b} streams x {length // 1024} "
-              f"KiB: counts and bitmaps bit-exact against plain (tolerance 0), "
+              f"E={csr.targets.shape[0]}, {route_text(route)}; {b} streams x "
+              f"{length // 1024} KiB: counts and bitmaps bit-exact against plain "
+              f"(tolerance 0), "
               f"two chunks equal one run; {ms:.4f} ms, plain {plain_ms:.2f} ms, "
               f"bound {bound:.5f} ms", flush=True)
         if entry is None:
@@ -2146,6 +2285,7 @@ def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
                      "library_ms": LIBRARY_MS,
                      "shape": f"{label} NFA, {b} streams x {length // 1024} KiB"}
     check(err == 0, f"nfa_tp_scan differs from its plain version by {err}")
+    err = max(err, k5_edges(dev, rng))
     entry["max_abs_err"] = err
 
     # the multi-rank route's kernel, a launch a byte: all the states of one
@@ -2170,11 +2310,11 @@ def phase_k5(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
     want, plain_ms = one_run_ms(lambda: hn.nfa_tp_scan_plain(*whole))
     step_err = max(step_err, max_abs_err(got, want))
     ms = event_ms(lambda: hn.nfa_tp_scan_sharded(*whole), 3)
-    # the (B, S_pad) int32 successor flags leave the kernel every byte: the
+    # the (B, S_pad) uint8 successor flags leave the kernel every byte: the
     # sum over ranks reads them
     bound = bound_ms((streams, csr.offsets, csr.targets, csr.class_of,
                       csr.accept, bitmap, counts), (got[0], got[1])) \
-        + length * b * (s + 1) * 4 / HBM_BYTES_PER_S * 1e3
+        + length * b * (s + 1) / HBM_BYTES_PER_S * 1e3
     check(step_err == 0, f"nfa_tp_step differs from K5 or its plain version "
                          f"by {step_err}")
     print(f"kernels: K5's sharded step (nfa_tp_step, a launch a byte) l7-corpus "
@@ -2429,14 +2569,17 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
           f"bound 128 and the lazy walk), Snort 132 x 64 KiB {tp_s_s * 1e3:.1f} "
           f"ms (= the native lazy walk)", flush=True)
 
-    # K5 alone at the main path's shapes, beside its bound and floor
+    # K5 alone at the main path's shapes, beside its bound, its floor and the
+    # first design's time (one CTA a stream, timed on an NVIDIA H100 80GB
+    # HBM3 at 700 W)
     main = {}
-    for label, c, streams, threads in (
-            ("l7-corpus NFA, 64 flows x 1 MiB", csr, l7_main, None),
+    step = sync_ns(32)  # a dependent shared load and the barrier of one warp
+    for label, c, streams, first_ms in (
+            ("l7-corpus NFA, 64 flows x 1 MiB", csr, l7_main, 362.59),
             ("Snort-corpus NFA, 132 flows x 64 KiB", s_csr,
-             torch.as_tensor(s_flows, device=dev), None)):
-        route = hn.nfa_tp_route(c)
+             torch.as_tensor(s_flows, device=dev), 53.58)):
         b, length = streams.shape
+        route = hn.nfa_tp_route(c, b)
         bm = torch.zeros((b, c.num_states + 1), dtype=torch.bool, device=dev)
         bm[:, 0] = True
         cnt = torch.zeros(bm.shape, dtype=torch.int32, device=dev)
@@ -2444,14 +2587,15 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
         words = hn._pack_bits(bm)
         bound = bound_ms((streams, c.offsets, c.targets, c.class_of, c.accept,
                           words, cnt), (cnt, words))
-        step = sync_ns(route["threads"])
         floor = length * step / 1e6
         main[label] = {"ms": ms, "bound_ms": bound, "floor_ms": floor,
-                       "step_ns": step, "threads": route["threads"]}
-        print(f"time: nfa_tp_scan[{label}, {route['threads']} threads a "
-              f"stream] {ms:.2f} ms, bound {bound:.4f} ms, floor {floor:.2f} ms "
-              f"({length:,} bytes x {step:.2f} ns, a dependent shared load and "
-              f"a CTA barrier of {route['threads']} threads)", flush=True)
+                       "step_ns": step, **route}
+        print(f"time: nfa_tp_scan[{label}; {route_text(route)}] {ms:.2f} ms "
+              f"(the first design, one CTA a stream: {first_ms} ms on an H100 "
+              f"80GB HBM3 at 700 W), "
+              f"bound {bound:.4f} ms, floor {floor:.2f} ms ({length:,} bytes x "
+              f"{step:.2f} ns, a dependent shared load and the barrier of one "
+              f"warp)", flush=True)
     k4_ms = results["nfa_active_scan"]["main_path"]["ms"]
     l7_k5 = main["l7-corpus NFA, 64 flows x 1 MiB"]["ms"]
     print(f"time: l7-corpus NFA 64 x 1 MiB: K5 {l7_k5:.2f} ms against K4 "
@@ -2463,27 +2607,10 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     t0 = time.perf_counter()
     single = rank_program(1)
     both = spawn_ranks(rank_program, 2, "gloo", "cuda", args=(2,), timeout=600)
-    for r, got in enumerate(both):
+    for got in both:
         for k, v in got["launches"].items():
             launches[k] += v
-        for key in ("fast", "kgram"):
-            check(got[key][2] and all(np.array_equal(a, b) for a, b in
-                                      zip(got[key][:2], single[key][:2])),
-                  f"rank {r} {key} on a (1, 2) seq mesh: world size 1")
-        # S_pad rounds S + 1 up to the model ranks: compare the states and
-        # the sentinel slot, and the padding is clear
-        s1 = single["tp"][1].shape[1]
-        check(np.array_equal(got["tp"][0], single["tp"][0])
-              and np.array_equal(got["tp"][1][:, :s1], single["tp"][1])
-              and not got["tp"][1][:, s1:].any(),
-              f"rank {r} nfa_scan_tp on a (1, 2) model mesh: world size 1")
-    print(f"parallel: 2 ranks on one card over gloo ({both[0]['route']}): "
-          f"fast {both[0]['fast'][3]:.2f} s, k-gram {both[0]['kgram'][3]:.2f} "
-          f"s over 2 x 32 MiB on a (1, 2) seq mesh; nfa_scan_tp on a (1, 2) "
-          f"model mesh ({both[0]['tp_route']}) {both[0]['tp'][2]:.2f} s over 2 "
-          f"x 4 KiB (world size 1: {single['tp'][2]:.3f} s, "
-          f"{single['tp_route']}); every result equals world size 1 "
-          f"({time.perf_counter() - t0:.1f} s with the spawn)", flush=True)
+    check_ranks(both, single, "2 ranks on one card over gloo", t0)
     shutil.rmtree(work, ignore_errors=True)
     print(f"parallel: launches of the main path's own calls (both ranks of "
           f"(d) summed) {json.dumps(launches)}", flush=True)
@@ -2552,6 +2679,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile each API call (device copy, kernel "
                              "and idle time)")
+    parser.add_argument("--tp-ranks", type=int, metavar="N",
+                        help="only the multi-rank scans on N NCCL ranks, a card "
+                             "each, against world size 1 (needs N cards)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible to torch", file=sys.stderr)
@@ -2569,6 +2699,9 @@ def main(argv=None) -> int:
 
     phase_device(args.out)
     done("phase 1 (device, builds)")
+    if args.tp_ranks:
+        tp_ranks(args.tp_ranks)
+        return 0
 
     from regex_fpga_tpu_torch.models import (LazyDfa, build_aho_corasick,
                                              build_tokenizer_dfa, gen_l7_traffic,

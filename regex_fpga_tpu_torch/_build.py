@@ -99,9 +99,11 @@ def library() -> ctypes.CDLL:
     lib.dfa_block_fns_route.argtypes = [i, i, i, i]
     lib.nfa_active_scan.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
     lib.nfa_active_route.argtypes = [i, i, i, i, i]
-    lib.nfa_tp_scan.argtypes = [p, ll, i, p, p, p, p, i, i, i, i, p, p, i, p]
-    lib.nfa_tp_route.argtypes = [i, i, i, i]
-    lib.nfa_tp_step.argtypes = [p, ll, ll, i, p, p, p, p, i, i, p, ll, p, p, i, i, p]
+    lib.nfa_tp_scan.argtypes = [
+        p, ll, i, p, p, p, p, i, i, i, i, p, p, i, p, p, p, i, i, p, p, i, p,
+    ]
+    lib.nfa_tp_route.argtypes = [i, i, i, i, i, i, i]
+    lib.nfa_tp_step.argtypes = [p, ll, ll, i, p, p, p, p, i, i, i, i, p, ll, p, p]
     for fn in (lib.dfa_chain, lib.dfa_chain_counts, lib.dfa_chain_route,
                lib.dfa_chain_lanes_per_cta, lib.kgram_chain,
                lib.kgram_chain_route, lib.nfa_active_scan,

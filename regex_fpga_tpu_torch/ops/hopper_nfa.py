@@ -22,9 +22,9 @@ successors becomes the next bitmap. It is the loop of
 ``regex_fpga_tpu/parallel/tp_scan.py::nfa_scan_tp`` with the model axis of
 size one, bit for bit; its kernel is ``csrc/nfa_tp_scan.cu`` and reads the
 same CSR (``nfa_tp_route``). ``nfa_tp_scan_sharded`` is the same scan over
-a rank's slice of the states, with a cross-rank sum of the successors
-between two bytes: the route that ``parallel.tp_scan`` takes on more than
-one rank, one launch of ``nfa_tp_step`` (same file) a byte.
+a rank's slice of the states, with a cross-rank sum of uint8 successor
+flags between two bytes: the route that ``parallel.tp_scan`` takes on more
+than one rank, one launch of ``nfa_tp_step`` (same file) a byte.
 ``nfa_tp_scan_plain`` is the JAX step in torch ops, for either.
 
 A wrapper launches the kernel for CUDA tensors and takes the plain version
@@ -32,6 +32,9 @@ only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -216,24 +219,27 @@ def nfa_tp_scan(csr: NfaCsr, streams, bitmap, counts):
         return nfa_tp_scan_plain(csr, streams, bitmap, counts)
     if streams.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {streams.device}")
-    _check_targets(csr)
-    tg = csr.targets
+    n_acc, start_off, start_rows, two_step, slots, d, max_row = _k5_aux(csr)
+    two_off, two_rows = two_step if two_step is not None else (None, None)
     b, length = streams.shape
     n = bitmap.shape[1]
     dev = streams.device
     words = _pack_bits(bitmap)
     out = counts.contiguous().clone()
-    n_acc = int(csr.accept[:s].sum())
     streams = streams.contiguous()
-    offsets, targets = csr.offsets.contiguous(), tg.contiguous()
+    offsets, targets = csr.offsets.contiguous(), csr.targets.contiguous()
     class_of, accept = csr.class_of.contiguous(), csr.accept.contiguous()
     LAUNCHES["nfa_tp_scan"] += 1
     with torch.cuda.device(dev):
         rc = _build.library().nfa_tp_scan(
             streams.data_ptr(), length, b, class_of.data_ptr(),
             offsets.data_ptr(), targets.data_ptr(), accept.data_ptr(),
-            csr.num_classes, s, targets.shape[0], n_acc, words.data_ptr(),
-            out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+            csr.num_classes, s, targets.shape[0], n_acc, start_off.data_ptr(),
+            start_rows.data_ptr(), start_rows.shape[0],
+            two_off.data_ptr() if two_off is not None else None,
+            two_rows.data_ptr() if two_rows is not None else None,
+            slots.data_ptr(), d, max_row, words.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "nfa_tp_scan")
     return out, _unpack_bits(words, n)
@@ -246,12 +252,131 @@ def _check_targets(csr: NfaCsr) -> None:
         raise ValueError(f"CSR targets must lie in [0, {s})")
 
 
+_K5_AUX: dict = {}  # id(csr) -> what K5 reads beside the CSR, while csr lives
+_SLOT_LIMIT = 8  # edge slots a state at most (csrc/nfa_tp_scan.cu: WIDE)
+_TWO_STEP_LIMIT = 1 << 20  # states two bytes deep, summed over class pairs
+
+
+def _k5_aux(csr: NfaCsr):
+    """What K5 reads beside the CSR, built once per CSR on its device (the
+    CSR's tensors are taken as fixed): (the accepting states below S; the
+    start state's successors on each class as (word, mask) pairs, one pair
+    a word, the start state itself left out: (C+1,) int32 offsets, whose
+    top bit says that the start state loops to itself on the class, and
+    whose next bit that one of the successors accepts, and (P, 2) int32
+    rows; ``_two_step``'s table or None; ``_edge_slots``'s slots and D; the
+    longest row of any state but the start state). Raises when a target
+    lies outside [0, S)."""
+    key = id(csr)
+    if key in _K5_AUX:
+        return _K5_AUX[key]
+    _check_targets(csr)
+    s, c, dev = csr.num_states, csr.num_classes, csr.device
+    words = -(-s // 32) if s else 1
+    off = csr.offsets.long()
+    lens = off[:, 1] - off[:, 0]  # row 0; with S = 0 the sentinel's, empty
+    cls = torch.repeat_interleave(torch.arange(c, device=dev), lens)
+    first = torch.repeat_interleave(off[:, 0] - (lens.cumsum(0) - lens), lens)
+    tgt = torch.index_select(csr.targets, 0,
+                             first + torch.arange(cls.numel(), device=dev)).long()
+    pair = torch.unique(cls * max(s, 1) + tgt)  # a target once a class
+    cls, tgt = pair // max(s, 1), pair % max(s, 1)
+    loops = torch.zeros(c, dtype=torch.int64, device=dev)
+    loops[cls[tgt == 0]] = 1 << 31
+    cls, tgt = cls[tgt != 0], tgt[tgt != 0]
+    # a class with several accepting successors is flagged once: an indexed
+    # += writes each index once
+    loops[cls[csr.accept[tgt]]] += 1 << 30
+    two_step = _two_step(csr, cls, tgt, words)
+    start_off, rows = _pairs(cls, tgt, words, c)
+    max_row = int((off[:, 2:s + 1] - off[:, 1:s]).max()) if s > 1 else 0
+    slots, d = _edge_slots(csr)
+    start_off[:c] += loops
+    aux = (int(csr.accept[:s].sum()),
+           _as_int32_bits(start_off).to(torch.int32).contiguous(), rows,
+           two_step, slots, d, max_row)
+    _K5_AUX[key] = aux
+    weakref.finalize(csr, _K5_AUX.pop, key, None)
+    return aux
+
+
+def _pairs(group, tgt, words: int, n_groups: int):
+    """The targets of each group as (word, mask) pairs, one pair a word:
+    ((n_groups + 1,) int64 offsets, (P, 2) int32 rows); ``group`` and
+    ``tgt`` hold distinct (group, target) pairs."""
+    key, inv = torch.unique(group * words + (tgt >> 5), return_inverse=True)
+    masks = torch.zeros(key.numel(), dtype=torch.int64, device=tgt.device) \
+        .index_add_(0, inv, torch.bitwise_left_shift(torch.ones_like(tgt), tgt & 31))
+    rows = torch.stack([key % words, _as_int32_bits(masks)], 1).to(torch.int32)
+    off = torch.zeros(n_groups + 1, dtype=torch.int64, device=tgt.device)
+    off[1:] = torch.bincount(key // words, minlength=n_groups).cumsum(0)
+    return off, rows.contiguous()
+
+
+def _two_step(csr: NfaCsr, p_cls, p_state, words: int):
+    """The start state's successors (``p_cls``, ``p_state``: class and
+    state, the start state left out) stepped once more: for each pair of
+    classes (c1, c2), the successors on c2 of the start state's successors
+    on c1, as (word, mask) pairs: ((C * C + 1,) int32 offsets, (Q, 2) int32
+    rows). None when a state other than the start state has an edge into a
+    start successor (then they must be listed as real states) or the table
+    would exceed its limit."""
+    s, c, dev = csr.num_states, csr.num_classes, csr.device
+    e_cls, e_src, e_tgt = _edges(csr, 1, s)
+    e_src = e_src + 1
+    start_succ = torch.zeros(max(s, 1), dtype=torch.bool, device=dev)
+    start_succ[p_state] = True
+    if p_state.numel() == 0 or bool(start_succ[e_tgt].any()):
+        return None
+    order = torch.argsort(e_src, stable=True)
+    e_cls, e_src, e_tgt = e_cls[order], e_src[order], e_tgt[order]
+    deg = torch.bincount(e_src, minlength=s)
+    first = deg.cumsum(0) - deg
+    n = deg[p_state]
+    total = int(n.sum())
+    if total > _TWO_STEP_LIMIT:
+        return None
+    c1 = torch.repeat_interleave(p_cls, n)
+    k = torch.repeat_interleave(first[p_state] - (n.cumsum(0) - n), n) \
+        + torch.arange(total, device=dev)
+    pair = torch.unique((c1 * c + e_cls[k]) * s + e_tgt[k])
+    off, rows = _pairs(pair // s, pair % s, words, c * c)
+    return off.to(torch.int32).contiguous(), rows
+
+
+def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values below 2^32 as the int32 of the same 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x)
+
+
+def _edge_slots(csr: NfaCsr):
+    """Each state's edges over all classes in D slots, (S, D) int32 of
+    class << 24 | target and -1 for none, the start state's empty; D the
+    most edges of any other state. An empty tensor and D = 0 when D is 0 or
+    above the slot limit."""
+    s, dev = csr.num_states, csr.device
+    deg = (csr.offsets[:, 1:s + 1] - csr.offsets[:, :s]).sum(0)
+    d = int(deg[1:].max()) if s > 1 else 0
+    if not 0 < d <= _SLOT_LIMIT:
+        return torch.empty(0, dtype=torch.int32, device=dev), 0
+    e_cls, e_src, e_tgt = _edges(csr, 1, s)
+    order = torch.argsort(e_src, stable=True)
+    e_cls, e_src, e_tgt = e_cls[order], e_src[order] + 1, e_tgt[order]
+    first = torch.zeros(s, dtype=torch.long, device=dev)
+    first[1:] = deg[:-1].long().cumsum(0)
+    first -= deg[0]  # the start state's edges are not among them
+    rank = torch.arange(e_src.numel(), device=dev) - first[e_src]
+    slots = torch.full((s * d,), -1, dtype=torch.int64, device=dev)
+    slots[e_src * d + rank] = (e_cls << 24) | e_tgt
+    return _as_int32_bits(slots).to(torch.int32).reshape(s, d), d
+
+
 def nfa_tp_scan_sharded(csr: NfaCsr, streams, bitmap, counts, lo: int,
                         s_pad: int, all_reduce=None):
     """K5 over one rank's slice of the states. ``bitmap`` (B, n) bool and
     ``counts`` (B, n) int32 hold the states lo..lo+n-1 of ``s_pad``. Per
     byte: the accepting active states count, the successors of the active
-    states are flagged in a (B, s_pad) int32 vector, ``all_reduce`` (when
+    states are flagged in a (B, s_pad) uint8 vector, ``all_reduce`` (when
     given) sums it over the ranks in place, and its slice > 0 is the next
     bitmap. CUDA tensors take one launch of ``nfa_tp_step`` a byte, CPU
     tensors ``nfa_tp_scan_plain``. Returns (counts (B, n) int32, bitmap
@@ -278,43 +403,60 @@ def nfa_tp_scan_sharded(csr: NfaCsr, streams, bitmap, counts, lo: int,
     streams = streams.contiguous()
     offsets, targets = csr.offsets.contiguous(), csr.targets.contiguous()
     class_of, accept = csr.class_of.contiguous(), csr.accept.contiguous()
-    act = bitmap.to(torch.int32).contiguous()
-    act_ptr, stride = act.data_ptr(), n
-    bufs = [torch.empty((b, s_pad), dtype=torch.int32, device=dev)
-            for _ in range(2)]
-    lib = _build.library()
+    # three rotating flag buffers, each 16-byte aligned: launch t reads t % 3,
+    # writes (t+1) % 3 and clears (t+2) % 3
+    stride = -(-(b * s_pad) // 16) * 16
+    flags = torch.zeros((3, stride), dtype=torch.uint8, device=dev)
+    views = [flags[k, :b * s_pad].view(b, s_pad) for k in range(3)]
+    views[0][:, lo:lo + n] = bitmap
+    step = _build.library().nfa_tp_step
     with torch.cuda.device(dev):
-        cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+        # every argument as a ctypes value, built once: a byte sets t in place
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        t_arg = i64(0)
+        args = (ptr(streams.data_ptr()), i64(length), t_arg, i32(b),
+                ptr(class_of.data_ptr()), ptr(offsets.data_ptr()),
+                ptr(targets.data_ptr()), ptr(accept.data_ptr()), i32(s), i32(lo),
+                i32(n), i32(s_pad), ptr(flags.data_ptr()), i64(stride),
+                ptr(out.data_ptr()),
+                ptr(torch.cuda.current_stream(dev).cuda_stream))
         for t in range(length):
-            partial = bufs[t % 2]  # the other holds this byte's active set
-            LAUNCHES["nfa_tp_step"] += 1
-            rc = lib.nfa_tp_step(
-                streams.data_ptr(), length, t, b, class_of.data_ptr(),
-                offsets.data_ptr(), targets.data_ptr(), accept.data_ptr(), s,
-                lo, act_ptr, stride, out.data_ptr(), partial.data_ptr(), n,
-                s_pad, cuda_stream)
-            _build.check(rc, "nfa_tp_step")
+            t_arg.value = t
+            rc = step(*args)
+            if rc:
+                _build.check(rc, "nfa_tp_step")
             if all_reduce is not None:
-                all_reduce(partial)
-            act_ptr = partial.data_ptr() + lo * partial.element_size()
-            stride = s_pad
+                all_reduce(views[(t + 1) % 3])
+    LAUNCHES["nfa_tp_step"] += length
     # no CSR edge reaches the sentinel S, so the slice needs no clearing
-    return out, partial[:, lo:lo + n] > 0
+    return out, views[length % 3][:, lo:lo + n] > 0
 
 
-def nfa_tp_route(csr: NfaCsr) -> dict:
-    """Where K5 keeps its data for this NFA on the current card:
-    {"csr_smem": bool (narrowed to 16 bits), "counters_smem": bool,
-    "threads": threads per CTA (one CTA a stream)}. Raises when the
-    bitmaps do not fit in shared memory."""
-    n_acc = int(csr.accept[:csr.num_states].sum())
+def nfa_tp_route(csr: NfaCsr, num_streams: int = 1) -> dict:
+    """Where K5 keeps its data for this NFA and ``num_streams`` streams on
+    the current card: {"edges": "shared CSR" (narrowed to 16 bits, with the
+    start pairs), "shared slots" (each state's edges in a few slots) or
+    "global CSR"; "counters_smem": bool; "bitmap": "register" (a word a
+    lane, S <= 1,024) or "listed" (shared bitmaps with lists of their
+    non-zero words); "start": how the start state's successors join the
+    next set ("dense words": a word a lane; "pairs": listed as they are
+    set; "two-step": never listed, stepped by a table per pair of
+    classes); "warps_per_cta": streams a CTA, a warp each}. Raises when
+    one stream's bitmaps do not fit in shared memory."""
+    n_acc, _, start_rows, two_step, _, d, _ = _k5_aux(csr)
     r = _build.library().nfa_tp_route(csr.num_classes, csr.num_states,
-                                      csr.targets.shape[0], n_acc)
+                                      csr.targets.shape[0], n_acc,
+                                      start_rows.shape[0], d, num_streams)
     if r < 0:
         raise ValueError(f"the bitmaps of {csr.num_states} states exceed the "
                          f"card's shared memory")
-    return {"csr_smem": bool(r & 1), "counters_smem": bool(r & 2),
-            "threads": r >> 8}
+    listed = bool(r & 8)
+    return {"edges": ("global CSR", "shared CSR", "shared slots")[r & 3],
+            "counters_smem": bool(r & 4),
+            "bitmap": "listed" if listed else "register",
+            "start": ("dense words" if not listed else
+                      "pairs" if two_step is None else "two-step"),
+            "warps_per_cta": r >> 8}
 
 
 def _pack_bits(bitmap: torch.Tensor) -> torch.Tensor:
@@ -356,10 +498,12 @@ def nfa_tp_scan_plain(csr: NfaCsr, streams, bitmap, counts, lo: int = 0,
                       s_pad: int | None = None, all_reduce=None):
     """Plain-torch K5, the JAX step: per byte, counts += bitmap & accept;
     the successors of the active states are scatter-added into an
-    (B, s_pad) count, ``all_reduce`` (when given) sums that count over the
-    ranks in place, and the slice of it > 0, with the sentinel slot S
-    cleared, is the next bitmap. ``bitmap`` and ``counts`` (B, n) hold the
-    states lo..lo+n-1 of ``s_pad`` (default n)."""
+    (B, s_pad) count, which becomes uint8 flags (> 0); ``all_reduce`` (when
+    given) sums the flags over the ranks in place (at most 255 ranks, so
+    the sum fits), and their slice > 0, with the sentinel slot S cleared, is
+    the next bitmap: JAX's int32 ``psum`` then ``> 0`` gives the same
+    bitmap. ``bitmap`` and ``counts`` (B, n) hold the states lo..lo+n-1 of
+    ``s_pad`` (default n)."""
     dev = streams.device
     b, length = streams.shape
     n = bitmap.shape[1]
@@ -379,9 +523,10 @@ def nfa_tp_scan_plain(csr: NfaCsr, streams, bitmap, counts, lo: int = 0,
         w = bm[:, e_src] & (e_cls[None, :] == cls[:, t:t + 1])
         partial = torch.zeros((b, s_pad), dtype=torch.int32, device=dev)
         partial.index_add_(1, e_tgt, w.to(torch.int32))
+        flags = (partial > 0).to(torch.uint8)
         if all_reduce is not None:
-            all_reduce(partial)
-        bm = partial[:, lo:lo + n] > 0
+            all_reduce(flags)
+        bm = flags[:, lo:lo + n] > 0
         if sentinel is not None:
             bm[:, sentinel] = False
     return cnt, bm

@@ -6,8 +6,9 @@ ranks, per-host file shards feeding the local ranks
 (``ingest.shard_files``), and the collectives of ``dist_scan``. A single
 process is the same program with a world size of 1.
 
-``spawn_ranks`` starts ranks on one machine without ``torchrun``: the tests
-run gloo ranks on the CPU with it, and ``graft_entry.dryrun_multichip`` and
+``spawn_ranks`` starts ranks on one machine without ``torchrun``, on the card
+unless the caller asks for the CPU: the tests run gloo ranks on the CPU with
+it (``device="cpu"``), and ``graft_entry.dryrun_multichip`` and
 ``chip_smoke.py`` use it for several ranks. Its rendezvous is a file in a
 temporary directory, so it needs no network.
 """
@@ -24,6 +25,7 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from ..ops.tables import resolve_device
 from .mesh import make_mesh
 
 __all__ = ["HostTopology", "global_mesh", "init_distributed", "spawn_ranks"]
@@ -98,15 +100,18 @@ def _rank_main(rank, world, backend, device, store_path, results, fn, args):
         raise
 
 
-def spawn_ranks(fn, world_size: int, backend: str = "gloo", device="cpu",
+def spawn_ranks(fn, world_size: int, backend: str = "gloo", device=None,
                 args: tuple = (), timeout: float = 600.0) -> list:
     """Run ``fn(*args)`` in ``world_size`` new processes (the ``spawn``
     start method), each a rank of one process group on ``backend``, with its
-    tensors on ``device`` (a CUDA rank takes card ``rank % device_count``).
+    tensors on ``device`` (default: the card; a CUDA rank takes card
+    ``rank % device_count``; raises ``RuntimeError`` when no card is visible,
+    and ``device="cpu"`` runs the ranks on the CPU).
     ``fn`` is a module-level function; it reads its rank from
     ``torch.distributed`` and returns a picklable value (numpy, not
     tensors). Returns the values in rank order. A rank that raises or dies
     stops the others, and the error is raised here."""
+    device = resolve_device(device)
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="regex_ranks_")
     results = ctx.Queue()

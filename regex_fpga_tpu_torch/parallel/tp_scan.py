@@ -6,9 +6,11 @@ rank m of the ``model`` axis owns the states [m * S_loc, (m + 1) * S_loc):
 their slice of the bitmap, of the accept mask and of the counters.
 
 One byte: every active state counts if it accepts; its successors are
-scatter-added into a full-width (S_pad,) count; a sum over the ``model``
-axis merges the ranks' partial counts, and each rank keeps its slice > 0
-(the sentinel slot S cleared) as the next bitmap.
+flagged in a full-width (S_pad,) uint8 vector; a sum over the ``model``
+axis merges the ranks' flags (JAX sums int32 counts; either sum > 0 is the
+same bitmap), and each rank keeps its slice > 0 (the sentinel slot S
+cleared) as the next bitmap. A model axis has at most 255 ranks, so the
+uint8 sum cannot wrap.
 
 Two routes:
 
@@ -35,7 +37,11 @@ from ..ops.tables import NfaCsr, NfaTables, nfa_csr_from_tables
 from .dist_scan import _data_rows, _gather_data, _tensor
 from .mesh import MODEL_AXIS, Mesh, all_gather, all_reduce
 
-__all__ = ["nfa_scan_tp", "pad_tables_tp", "tp_route"]
+__all__ = ["MAX_MODEL_RANKS", "nfa_scan_tp", "pad_tables_tp", "tp_route"]
+
+#: The most ranks a model axis may have: each rank flags a successor with a
+#: uint8 1, and the sum over the ranks must stay below 256.
+MAX_MODEL_RANKS = 255
 
 
 def _s_pad(num_states: int, n_model: int) -> int:
@@ -79,9 +85,13 @@ def nfa_scan_tp(mesh: Mesh, tables: NfaCsr | NfaTables, streams,
     padded). Returns ``(counts, final_bitmap)``: per-stream per-state match
     counts (B, S) int32 and the final active bitmaps (B, S_pad) bool (slot
     S is the sentinel, cleared)."""
+    n_model = mesh.shape[MODEL_AXIS]
+    if n_model > MAX_MODEL_RANKS:
+        raise ValueError(f"a model axis of {n_model} ranks: at most "
+                         f"{MAX_MODEL_RANKS}, so that the uint8 successor "
+                         f"flags summed over the ranks cannot wrap")
     csr = tables if isinstance(tables, NfaCsr) else nfa_csr_from_tables(tables)
     dev = csr.device
-    n_model = mesh.shape[MODEL_AXIS]
     s = csr.num_states
     s_pad = _s_pad(s, n_model)
     s_loc = s_pad // n_model

@@ -123,7 +123,7 @@ CASES4 = [_audit_case(2, 2, 1), _audit_case(1, 4, 2)]
 
 @pytest.fixture(scope="module")
 def four_ranks():
-    return spawn_ranks(R.run_cases, 4, args=(CASES4,))
+    return spawn_ranks(R.run_cases, 4, device="cpu", args=(CASES4,))
 
 
 @pytest.mark.parametrize("scan", ["fast", "kgram"])

@@ -195,12 +195,12 @@ def test_world_size_one_matches_jax(i):
 
 @pytest.fixture(scope="module")
 def four_ranks():
-    return spawn_ranks(R.run_cases, 4, args=(CASES4,))
+    return spawn_ranks(R.run_cases, 4, device="cpu", args=(CASES4,))
 
 
 @pytest.fixture(scope="module")
 def two_ranks():
-    return spawn_ranks(R.run_cases, 2, args=(CASES2,))
+    return spawn_ranks(R.run_cases, 2, device="cpu", args=(CASES2,))
 
 
 @pytest.mark.parametrize("i", range(len(CASES4)),

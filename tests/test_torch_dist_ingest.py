@@ -106,7 +106,7 @@ def four_ranks(tmp_path_factory):
     kw = dict(CASES4[0][1])
     resume = [("ingest", dict(kw, stop_after=2, store=store)),
               ("ingest", dict(kw, store=store))]
-    return spawn_ranks(R.run_cases, 4, args=(CASES4 + resume,))
+    return spawn_ranks(R.run_cases, 4, device="cpu", args=(CASES4 + resume,))
 
 
 @pytest.mark.parametrize("i", range(len(CASES4)))

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from regex_fpga_tpu_torch.models import (CsrAutomaton, build_tokenizer_dfa,
-                                         gen_l7_traffic, l7_corpus_nfa)
+                                         gen_l7_traffic, gen_traffic,
+                                         l7_corpus_nfa, snort_corpus_nfa)
 from regex_fpga_tpu_torch.ops import hopper_dfa, hopper_kgram, hopper_nfa
 from regex_fpga_tpu_torch.ops import kgram as kgram_ops
 from regex_fpga_tpu_torch.ops.nfa_engine import initial_active
@@ -589,15 +590,104 @@ def hub_case(n_states, n_edges, hub_edges, n_bytes):
     return make
 
 
+def all_active_case(n_states, n_bytes):
+    """A random NFA in which every state also loops to itself on every byte:
+    from the start every state is active on every byte, so K5's word list
+    holds every word."""
+    def make(rng):
+        aut = random_nfa(rng, n_states, 3 * n_states, n_states // 10, n_bytes)
+        src = np.concatenate([np.repeat(np.arange(n_states), 256),
+                              np.repeat(np.arange(n_states), np.diff(aut.offsets))])
+        chars = np.concatenate([np.tile(np.arange(256), n_states), aut.trans_char])
+        tgts = np.concatenate([np.repeat(np.arange(n_states), 256),
+                               aut.trans_target])
+        order = np.argsort(src, kind="stable")
+        return CsrAutomaton(
+            offsets=np.searchsorted(src[order], np.arange(n_states + 1)).astype(np.int64),
+            trans_char=chars[order].astype(np.uint8),
+            trans_target=tgts[order].astype(np.int32)), \
+            rng.integers(0, n_bytes, size=5000).astype(np.uint8)
+    return make
+
+
+def chain_case(n_states, n_bytes, hub_edges):
+    """A random NFA whose states but the start state have one or two edges
+    over all bytes, and whose start state has ``hub_edges`` more: the
+    per-class CSR outgrows shared memory and the edges go to slots."""
+    def make(rng):
+        src = np.concatenate([np.zeros(hub_edges, np.int64),
+                              np.arange(1, n_states),
+                              rng.choice(np.arange(1, n_states), n_states // 2)])
+        order = np.argsort(src, kind="stable")
+        chars = rng.integers(0, n_bytes, size=src.size)[order]
+        tgts = rng.integers(0, n_states, size=src.size)[order]
+        return CsrAutomaton(
+            offsets=np.searchsorted(src[order], np.arange(n_states + 1)).astype(np.int64),
+            trans_char=chars.astype(np.uint8), trans_target=tgts.astype(np.int32)), \
+            rng.integers(0, n_bytes, size=5000).astype(np.uint8)
+    return make
+
+
+def trie_case(n_patterns, n_bytes):
+    """An unanchored literal trie with no shared prefixes, as the Snort-corpus
+    NFA is: the start state loops on every byte and starts each pattern's
+    chain, so only it reaches its successors (K5's two-step route on the
+    listed bitmaps); one-byte patterns make some of them accept."""
+    def make(rng):
+        src, chars, tgts, nxt = [0] * 256, list(range(256)), [0] * 256, 1
+        for _ in range(n_patterns):
+            prev = 0
+            for _ in range(int(rng.integers(1, 7))):
+                src.append(prev)
+                chars.append(int(rng.integers(0, n_bytes)))
+                tgts.append(nxt)
+                prev, nxt = nxt, nxt + 1
+        src = np.array(src)
+        order = np.argsort(src, kind="stable")
+        return CsrAutomaton(
+            offsets=np.searchsorted(src[order], np.arange(nxt + 1)).astype(np.int64),
+            trans_char=np.array(chars, np.uint8)[order],
+            trans_target=np.array(tgts, np.int32)[order]), \
+            rng.integers(0, n_bytes, size=5000).astype(np.uint8)
+    return make
+
+
+def snort_case(rng):
+    return (snort_corpus_nfa(),
+            np.resize(np.frombuffer(b"".join(gen_traffic()[0]), np.uint8), 1 << 20))
+
+
 TP_NFAS = {  # name -> (automaton, bytes), K5's CSR route
     **NFAS,
     "hub of 3,000 successors": hub_case(4000, 30_000, 3000, 16),
-    # one byte value, about 30 successors a state: more rows above the
-    # wide-row limit a byte than the queue holds
+    # one byte value, about 30 successors a state: every row is wide
     "1,500 dense states": random_case(1500, 40_000, 1),
+    # on both sides of the register/list boundary: W = 32, 32, 33 words
+    "1,023 states": random_case(1023, 4000, 8),
+    "1,024 states": random_case(1024, 4000, 8),
+    "1,025 states": random_case(1025, 4000, 8),
+    "all active, 700 states": all_active_case(700, 4),
+    "all active, 1,100 states": all_active_case(1100, 4),
+    # the start state's rows of up to 1,266 successors a class; every other
+    # state has at most one edge
+    "Snort corpus": snort_case,
+    # one or two edges a state: edge slots, with either bitmap route
+    "1,000-state chains": chain_case(1000, 256, 300),
+    "6,000-state chains": chain_case(6000, 20, 2000),
+    # only the start state reaches its successors, some of which accept
+    "trie of 400 patterns": trie_case(400, 6),
 }
-TP_CSR_SMEM = {**CSR_SMEM, "hub of 3,000 successors": True,
-               "1,500 dense states": True}
+# the listed NFAs whose start successors only the start state reaches
+TP_START = {"Snort corpus": "two-step", "trie of 400 patterns": "two-step"}
+# where K5 keeps the edges of each (4 streams)
+TP_EDGES = {**{k: "shared CSR" if v else "global CSR" for k, v in CSR_SMEM.items()},
+            "hub of 3,000 successors": "shared CSR",
+            "1,500 dense states": "shared CSR", "1,023 states": "shared CSR",
+            "1,024 states": "shared CSR", "1,025 states": "shared CSR",
+            "all active, 700 states": "shared CSR",
+            "all active, 1,100 states": "shared CSR",
+            "Snort corpus": "shared slots", "1,000-state chains": "shared slots",
+            "6,000-state chains": "shared slots", "trie of 400 patterns": "shared CSR"}
 
 
 def tp_inputs(rng, aut, data, b, length, cuda):
@@ -622,8 +712,12 @@ def test_nfa_tp_scan_matches_plain(cuda, name):
     rng = np.random.default_rng(5)
     aut, data = TP_NFAS[name](rng)
     csr = build_nfa_csr(aut, device=cuda)
-    route = hopper_nfa.nfa_tp_route(csr)
-    assert route["csr_smem"] == TP_CSR_SMEM[name]
+    route = hopper_nfa.nfa_tp_route(csr, 4)
+    assert route["edges"] == TP_EDGES[name]
+    assert route["bitmap"] == ("register" if aut.num_states <= 1024 else "listed")
+    assert route["start"] == TP_START.get(name, "dense words" if aut.num_states <= 1024
+                                          else "pairs")
+    assert route["warps_per_cta"] == 1
     length = 1500 if aut.num_states < 10_000 else 400
     for b, ln in ((4, length), (3, 0), (2, 33)):
         streams, bitmap, counts = tp_inputs(rng, aut, data, b, ln, cuda)
@@ -638,7 +732,49 @@ def test_nfa_tp_scan_matches_plain(cuda, name):
             assert torch.equal(got[1], bitmap) and torch.equal(got[0], counts)
 
 
-@pytest.mark.parametrize("name", ["l7 corpus", "hub of 3,000 successors"])
+@pytest.mark.parametrize("name", ["l7 corpus", "1,024 states", "1,025 states",
+                                  "6,000-state chains", "trie of 400 patterns"])
+def test_nfa_tp_scan_many_streams_per_cta(cuda, name):
+    """301 streams, more than the card's 132 SMs: several share a CTA (and
+    its CSR), and the last CTA is only partly filled; lengths not a
+    multiple of 32."""
+    rng = np.random.default_rng(301)
+    aut, data = TP_NFAS[name](rng)
+    csr = build_nfa_csr(aut, device=cuda)
+    route = hopper_nfa.nfa_tp_route(csr, 301)
+    assert route["warps_per_cta"] > 1 and 301 % route["warps_per_cta"]
+    for length in (77, 300):
+        streams, bitmap, counts = tp_inputs(rng, aut, data, 301, length, cuda)
+        got = hopper_nfa.nfa_tp_scan(csr, streams, bitmap, counts)
+        want = hopper_nfa.nfa_tp_scan_plain(csr, streams, bitmap, counts)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_nfa_tp_scan_all_active_counts(cuda):
+    """Every state active on every byte: each accepting state counts once a
+    byte, and the final bitmap holds every real state."""
+    rng = np.random.default_rng(9)
+    for name in ("all active, 700 states", "all active, 1,100 states"):
+        aut, data = TP_NFAS[name](rng)
+        s = aut.num_states
+        csr = build_nfa_csr(aut, device=cuda)
+        streams = torch.as_tensor(np.stack([data[:999], data[1000:1999]]),
+                                  device=cuda)
+        bitmap = torch.ones((2, s + 1), dtype=torch.bool, device=cuda)
+        counts = torch.zeros((2, s + 1), dtype=torch.int32, device=cuda)
+        got = hopper_nfa.nfa_tp_scan(csr, streams, bitmap, counts)
+        want_counts = torch.zeros_like(counts)
+        want_counts[:, :s] = 999 * csr.accept[:s].to(torch.int32)
+        assert torch.equal(got[0], want_counts)
+        assert bool(got[1][:, :s].all()) and not bool(got[1][:, s].any())
+
+
+@pytest.mark.parametrize("name", ["l7 corpus", "hub of 3,000 successors",
+                                  "1,023 states", "1,025 states",
+                                  "all active, 1,100 states", "Snort corpus",
+                                  "1,000-state chains", "trie of 400 patterns"])
 def test_nfa_tp_scan_resumes(cuda, name):
     """Two chunks in a row, the second from the first's carries, equal one
     unbroken run; on l7 the counts equal K4's at bound 128."""

@@ -67,7 +67,7 @@ def test_world_size_one_matches_jax(i):
 
 @pytest.fixture(scope="module")
 def four_ranks():
-    return spawn_ranks(R.run_cases, 4, args=(CASES4,))
+    return spawn_ranks(R.run_cases, 4, device="cpu", args=(CASES4,))
 
 
 @pytest.mark.parametrize("i", range(len(CASES4)))

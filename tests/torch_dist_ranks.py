@@ -78,16 +78,18 @@ def nfa(n_data, n_seq, aut, streams, bound=128):
     return _np(counts), _np(totals)
 
 
-def tp(n_data, n_model, aut, streams, split=None):
-    """``nfa_scan_tp``; with ``split``, as two chunks, the second resumed
-    from the first's carries."""
+def tp(n_data, n_model, aut, streams, split=None, start_bitmap=None,
+       counts_init=None):
+    """``nfa_scan_tp``, from the given start carries; with ``split``, as two
+    chunks, the second resumed from the first's carries."""
     from regex_fpga_tpu_torch import parallel as P
     from regex_fpga_tpu_torch.ops.tables import build_nfa_tables
 
     mesh = P.make_tp_mesh(n_model=n_model, n_data=n_data)
     tables = build_nfa_tables(_aut(aut))
     if split is None:
-        counts, finals = P.nfa_scan_tp(mesh, tables, streams)
+        counts, finals = P.nfa_scan_tp(mesh, tables, streams, start_bitmap,
+                                       counts_init)
     else:
         c1, b1 = P.nfa_scan_tp(mesh, tables, streams[:, :split])
         counts, finals = P.nfa_scan_tp(mesh, tables, streams[:, split:],

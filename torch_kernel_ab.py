@@ -40,7 +40,12 @@ Cases (CUDA events; each the mean of REPS launches after one warm-up):
   (kgram_chain_bytes; a tree without it maps with tensor passes and calls
   kgram_chain), and kgram_chain_bytes alone; K4 nfa_active_scan on the
   l7-corpus NFA over 4 streams of 16 KiB and over the main path's 64 flows
-  of 1 MiB (bound 128); and the latency of a dependent shared-memory load
+  of 1 MiB (bound 128); K5 nfa_tp_scan at the main path's shapes, the
+  l7-corpus NFA over the same 64 flows of 1 MiB and the Snort-corpus NFA
+  over 132 flows of 64 KiB of its traffic, from the start state; K5's
+  sharded step (nfa_tp_scan_sharded, a launch a byte, all states on one
+  rank) on the l7-corpus NFA over 4 flows of 4 KiB; and the latency of a
+  dependent shared-memory load
   (smem_chase, one warp: the difference of 8,192 and 4,096 steps), which is
   the floor under a chain step.
 """
@@ -58,7 +63,8 @@ import numpy as np
 MIB = 1 << 20
 SEED = 20261016
 ROOT = os.path.dirname(os.path.abspath(__file__))
-REPS = {"k4 l7 64x1MiB": 3}  # every other case: 20
+REPS = {"k4 l7 64x1MiB": 3, "k5 l7 64x1MiB": 3, "k5 snort 132x64KiB": 5,
+        "k5 step l7 4x4KiB": 5}  # every other case: 20
 FRAG = (b"The quick brown fox jumps over 1234 lazy dogs, it's 99.5% fine!  "
         b"pre-split   benchmark text \xc3\xa9t\xc3\xa9 2026... ")
 WORDS = [w % i for i in range(300)
@@ -87,6 +93,7 @@ def make_inputs(path: str) -> None:
     lazy_accept = n_acc > 0
     lazy_accept[unknown] = True
     csr = build_nfa_csr(l7_corpus_nfa())
+    snort_csr = build_nfa_csr(snort_corpus_nfa())
     ac_dfa = build_aho_corasick(WORDS[:300]).dfa
     ac = build_dfa_tables(ac_dfa.table, ac_dfa.accept)
     kg = build_kgram(tok, levels=2)
@@ -111,6 +118,9 @@ def make_inputs(path: str) -> None:
                            64 * MIB),
         l7_small_starts=rng.integers(0, 63 * 16 * 1024, size=4),
         l7_big_starts=rng.integers(0, 63 * MIB, size=64),
+        snort_offsets=snort_csr.offsets.numpy(), snort_targets=snort_csr.targets.numpy(),
+        snort_class_of=snort_csr.class_of.numpy(), snort_accept=snort_csr.accept.numpy(),
+        snort_flows=np.resize(snort, 132 * 64 * 1024).reshape(132, 64 * 1024),
     )
 
 
@@ -139,6 +149,24 @@ def time_tree(tree: str, inputs: str, only: list[str]) -> dict:
     tok_cls, lazy_cls = t["tok_cls"].T, t["lazy_cls"].T  # (steps, lanes) views
     tok_ent = torch.zeros(65536, dtype=torch.int32, device=dev)
     tok_start = torch.full_like(tok_ent, int(z["tok_start"]))
+
+    snort_csr = NfaCsr(offsets=t["snort_offsets"], targets=t["snort_targets"],
+                       class_of=t["snort_class_of"], accept=t["snort_accept"],
+                       num_states=int(z["snort_accept"].shape[0]) - 1)
+
+    def k5(c, streams, step=False):
+        """K5 (or, with ``step``, its sharded step on one rank holding every
+        state) over ``streams`` from the start state."""
+        n = c.num_states + 1
+        bm = torch.zeros((streams.shape[0], n), dtype=torch.bool, device=dev)
+        bm[:, 0] = True
+        cnt = torch.zeros(bm.shape, dtype=torch.int32, device=dev)
+        if step:
+            return lambda: hn.nfa_tp_scan_sharded(c, streams, bm, cnt, 0, n)
+        return lambda: hn.nfa_tp_scan(c, streams, bm, cnt)
+
+    l7_flows = torch.stack([t["l7_bytes"][o:o + MIB] for o in z["l7_big_starts"]])
+    l7_step = torch.stack([t["l7_bytes"][o:o + 4096] for o in z["l7_big_starts"][:4]])
 
     def k4(starts, size):
         n = len(starts)
@@ -228,6 +256,9 @@ def time_tree(tree: str, inputs: str, only: list[str]) -> dict:
         "k3 bytes tokenizer k=4 65536x256x4": k3_bytes,
         "k4 l7 4x16KiB": k4(z["l7_small_starts"], 16 * 1024),
         "k4 l7 64x1MiB": k4(z["l7_big_starts"], MIB),
+        "k5 l7 64x1MiB": k5(csr, l7_flows),
+        "k5 snort 132x64KiB": k5(snort_csr, t["snort_flows"]),
+        "k5 step l7 4x4KiB": k5(csr, l7_step, step=True),
     }
     def wanted(name):
         return not only or any(word in name for word in only)
