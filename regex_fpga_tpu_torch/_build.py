@@ -97,6 +97,9 @@ def library() -> ctypes.CDLL:
     lib.sync_chase.argtypes = [i, i, p, p]
     lib.dfa_block_fns.argtypes = [p, p, i, i, i, i, p, p]
     lib.dfa_block_fns_route.argtypes = [i, i, i, i]
+    lib.dfa_fn_combine.argtypes = [p, i, i, p, p, p, p, p, p]
+    lib.dfa_fn_combine_scratch.argtypes = [i, i]
+    lib.dfa_fn_combine_scratch.restype = ll
     lib.nfa_active_scan.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, p, p, p, p]
     lib.nfa_active_route.argtypes = [i, i, i, i, i]
     lib.nfa_tp_scan.argtypes = [
@@ -108,7 +111,7 @@ def library() -> ctypes.CDLL:
                lib.dfa_chain_lanes_per_cta, lib.kgram_chain,
                lib.kgram_chain_route, lib.nfa_active_scan,
                lib.nfa_active_route, lib.smem_chase, lib.sync_chase, lib.dfa_block_fns,
-               lib.dfa_block_fns_route, lib.nfa_tp_scan, lib.nfa_tp_route,
+               lib.dfa_block_fns_route, lib.dfa_fn_combine, lib.nfa_tp_scan, lib.nfa_tp_route,
                lib.nfa_tp_step):
         fn.restype = i
     return lib

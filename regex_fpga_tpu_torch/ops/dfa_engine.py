@@ -3,11 +3,13 @@
 The counterpart of ``regex_fpga_tpu/ops/dfa_engine.py`` (K6). The blocked
 scan composes transition functions: pass 1 steps all S start states through
 each block, giving the block's function f: S -> S (``dfa_block_fns``, the
-Hopper kernel ``csrc/dfa_block_fns.cu`` on the card); an exclusive prefix
-composition (log depth, ``torch.gather``) gives every block its true entry
-state; pass 2 rescans each block from it (K1's full mode, ``dfa_chain``). It
-is exact for any automaton, including those the fast engine's Jacobi seams
-never settle (parity counters), at S times the work of a chain pass.
+Hopper kernel ``csrc/dfa_block_fns.cu`` on the card, where chains that meet
+merge); the combine, an exclusive prefix composition of one start state,
+gives every block its true entry state (``dfa_fn_combine``, a kernel of the
+same file on the card; log-depth doubling with ``torch.gather`` on the CPU);
+pass 2 rescans each block from it (K1's full mode, ``dfa_chain``). It is
+exact for any automaton, including those the fast engine's Jacobi seams
+never settle (parity counters).
 ``DfaMatcher`` reaches it only when the fast engine reports non-convergence.
 
 The (NB, S) block functions grow with S (219 MB at 65,536 blocks and
@@ -23,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .hopper_dfa import dfa_block_fns, dfa_chain
+from .hopper_dfa import dfa_block_fns, dfa_chain, dfa_fn_combine
 from .tables import DfaTables
 
 __all__ = [
@@ -103,18 +105,10 @@ def block_entry_states(block_fns: torch.Tensor,
 
     entry_states[n] is the state at the start of block n when the stream is
     entered at ``start`` (an int, or a one-element tensor on the functions'
-    device): an exclusive prefix composition of the block functions,
-    computed by log-depth doubling."""
-    prefix = block_fns
-    n = prefix.shape[0]
-    d = 1
-    while d < n:
-        prefix = torch.cat([prefix[:d], compose(prefix[:-d], prefix[d:])])
-        d *= 2
-    first = torch.as_tensor(start, dtype=torch.int32,
-                            device=block_fns.device).reshape(1)
-    col = torch.index_select(prefix, 1, first).reshape(-1).to(torch.int32)
-    return torch.cat([first, col[:-1]]), col[-1]
+    device): an exclusive prefix composition of the block functions (K6's
+    combine, ``dfa_fn_combine``: a kernel on the card, log-depth doubling
+    on the CPU)."""
+    return dfa_fn_combine(block_fns, start)
 
 
 def dfa_scan_blocked(

@@ -7,9 +7,12 @@ returns the final states and the accept-visit histogram, per state or per
 stream and state. The kernels are ``csrc/dfa_chain.cu``; they replace the TPU
 kernels ``regex_fpga_tpu/ops/pallas_dfa.py::_kernel`` and ``::_counts_kernel``.
 ``dfa_block_fns`` (K6, pass 1 of the exact fallback) runs every block of a
-stream from every start state and returns the blocks' transition functions;
-its kernel is ``csrc/dfa_block_fns.cu``, and it replaces the XLA loop
-``regex_fpga_tpu/ops/dfa_engine.py::block_transition_functions``.
+stream from every start state and returns the blocks' transition functions,
+merging the chains of a block that meet; ``dfa_fn_combine`` (K6's combine)
+turns them into every block's entry state. Their kernels are
+``csrc/dfa_block_fns.cu``; they replace the XLA region
+``regex_fpga_tpu/ops/dfa_engine.py::block_transition_functions`` and
+``::block_entry_states``.
 
 Layout: ``cls_seq`` is (B, NB), one column per lane, as in the JAX engines.
 Its storage may be either order: a ``blocks.T`` view of a block-major (NB, B)
@@ -23,6 +26,8 @@ never accept, in both versions, as the JAX engines' one-hot lookup does.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -38,10 +43,13 @@ __all__ = [
     "dfa_chain_plain",
     "dfa_chain_counts_plain",
     "dfa_chain_route",
+    "dfa_fn_combine",
+    "dfa_fn_combine_plain",
 ]
 
 #: Kernel launches since the last reset, one count per kernel.
-LAUNCHES = {"dfa_chain": 0, "dfa_chain_counts": 0, "dfa_block_fns": 0}
+LAUNCHES = {"dfa_chain": 0, "dfa_chain_counts": 0, "dfa_block_fns": 0,
+            "dfa_fn_combine": 0}
 
 MODES = ("finals", "full", "mask")
 _CLASS_DTYPES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
@@ -181,6 +189,23 @@ def dfa_chain_route(mode: str, num_classes: int, num_states: int,
             "lanes_per_cta": lib.dfa_chain_lanes_per_cta()}
 
 
+_CHECKED_TABLES: dict = {}  # id -> (weak reference, version) of tables in range
+
+
+def _check_table_range(table) -> None:
+    """Raise if ``table`` holds a state id outside [0, S). The check waits
+    for the device, so a table tensor is checked once and again only after
+    an in-place change (its version counter moves)."""
+    seen = _CHECKED_TABLES.get(id(table))
+    if seen is not None and seen[0]() is table and seen[1] == table._version:
+        return
+    if bool(((table < 0) | (table >= table.shape[1])).any()):
+        raise ValueError("table holds state ids outside [0, S): corrupt table")
+    key = id(table)
+    _CHECKED_TABLES[key] = (weakref.ref(table, lambda _: _CHECKED_TABLES.pop(key, None)),
+                            table._version)
+
+
 def dfa_block_fns(table, classes):
     """K6, pass 1 of the exact fallback. ``classes`` is (NB, B): the class
     ids of NB blocks of B bytes. Returns (NB, S) int32: f[n, s] is the state
@@ -197,8 +222,7 @@ def dfa_block_fns(table, classes):
     nb, b = classes.shape
     if c * s >= 1 << 31 or nb * s >= 1 << 31:
         raise ValueError("table and output must each stay below 2^31 entries")
-    if bool(((table < 0) | (table >= s)).any()):
-        raise ValueError("table holds state ids outside [0, S): corrupt table")
+    _check_table_range(table)
     if classes.device.type == "cpu":
         return dfa_block_fns_plain(table, classes)
     _require_cuda(classes)
@@ -217,16 +241,82 @@ def dfa_block_fns(table, classes):
 
 def dfa_block_fns_route(num_classes: int, num_states: int, num_blocks: int,
                         block_size: int = 1024) -> dict:
-    """Where K6 keeps its table for these shapes on the current card:
-    {"table": "shared uint16" | "shared uint32" | "global", "group": blocks
-    whose class ids a CTA stages per round}."""
+    """The route K6 pass 1 takes for these shapes on the current card:
+    {"route": "block a thread" (S <= 32: a thread carries a block's S chains)
+    | "block a warp" (a warp walks a block, chains that meet merge),
+    "table": "shared uint16" | "shared uint32" | "global", "chains_per_lane":
+    the chains a lane carries before any merge (on the warp route of a pass
+    of at most 1,024 start states), "merge_checks": the checks a block (0:
+    no merging), "packed": whether blocks left with at most 4 chains at
+    the first check walk on 32 to a warp, a lane each, "blocks_per_cta": the
+    blocks a CTA walks at once (packed ones counted)}."""
     r = _build.library().dfa_block_fns_route(num_classes, num_states,
                                              num_blocks, block_size)
-    return {"table": ("global", "shared uint32", "shared uint16")[r & 3],
-            "group": r >> 2}
+    return {"route": ("block a thread", "block a warp")[(r >> 2) & 1],
+            "table": ("global", "shared uint32", "shared uint16")[r & 3],
+            "chains_per_lane": (r >> 3) & 63, "merge_checks": (r >> 9) & 31,
+            "packed": bool((r >> 14) & 1), "blocks_per_cta": r >> 15}
+
+
+def dfa_fn_combine(fns, start=0):
+    """K6's combine. ``fns`` is (NB, S) int32 block functions (NB >= 1),
+    ``start`` an int in [0, S) or a one-element int32 tensor on their
+    device. Returns (entry (NB,) int32, final () int32): entry[n] is the
+    state in which block n is entered when the stream starts in ``start``,
+    final the state after the last block. On the card an entry outside
+    [0, S) in ``fns`` or a tensor ``start`` is read as state 0; the plain
+    version raises there."""
+    if fns.dim() != 2 or fns.dtype != torch.int32:
+        raise TypeError("block functions must be an (NB, S) int32 tensor")
+    nb, s = fns.shape
+    if nb < 1 or s < 1:
+        raise ValueError(f"no block functions to combine: shape {tuple(fns.shape)}")
+    if nb * s >= 1 << 31:
+        raise ValueError("block functions must stay below 2^31 entries")
+    if isinstance(start, torch.Tensor):
+        if start.numel() != 1 or start.device != fns.device:
+            raise ValueError("start must be one element on the functions' device")
+    elif not 0 <= int(start) < s:
+        raise ValueError(f"start state {start} outside [0, {s})")
+    if fns.device.type == "cpu":
+        return dfa_fn_combine_plain(fns, start)
+    _require_cuda(fns)
+    dev = fns.device
+    fns = fns.contiguous()
+    first = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(1)
+    entry = torch.empty(nb, dtype=torch.int32, device=dev)
+    final = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    scratch = torch.empty(lib.dfa_fn_combine_scratch(nb, s), dtype=torch.int32,
+                          device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    LAUNCHES["dfa_fn_combine"] += 1
+    with torch.cuda.device(dev):
+        rc = lib.dfa_fn_combine(fns.data_ptr(), nb, s, first.data_ptr(),
+                                entry.data_ptr(), final.data_ptr(),
+                                scratch.data_ptr(), bar.data_ptr(), _stream(dev))
+    _build.check(rc, "dfa_fn_combine")
+    return entry, final.reshape(())
 
 
 # --------------------------------------------------------------- plain versions
+
+
+def dfa_fn_combine_plain(fns, start=0):
+    """Plain-torch combine: an exclusive prefix composition of the block
+    functions by log-depth doubling (a gather and a copy of every function
+    a round), then the column of ``start``."""
+    prefix = fns
+    n = prefix.shape[0]
+    d = 1
+    while d < n:  # prefix[i] = fns[i] after ... after fns[max(0, i - 2d + 1)]
+        prefix = torch.cat([prefix[:d],
+                            torch.gather(prefix[d:], 1, prefix[:-d].long())])
+        d *= 2
+    first = torch.as_tensor(start, dtype=torch.int32,
+                            device=fns.device).reshape(1)
+    col = torch.index_select(prefix, 1, first).reshape(-1).to(torch.int32)
+    return torch.cat([first, col[:-1]]), col[-1]
 
 
 def dfa_block_fns_plain(table, classes):

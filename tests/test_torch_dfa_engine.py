@@ -67,6 +67,45 @@ def test_block_functions_and_entries_match_jax(seed, s, nb, b):
     )
 
 
+def entry_case(rng, kind, nb, s):
+    """(NB, S) block functions: "constant", "identity", "permutation",
+    "random", or "mixed" (random with every third function constant)."""
+    if kind == "constant":
+        f = np.repeat(rng.integers(0, s, size=(nb, 1)), s, axis=1)
+    elif kind == "identity":
+        f = np.tile(np.arange(s), (nb, 1))
+    elif kind == "permutation":
+        f = np.stack([rng.permutation(s) for _ in range(nb)])
+    else:
+        f = rng.integers(0, s, size=(nb, s))
+        if kind == "mixed":
+            f[::3] = rng.integers(0, s, size=(len(f[::3]), 1))
+    return f.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["constant", "identity", "permutation",
+                                  "random", "mixed"])
+@pytest.mark.parametrize("nb,s,start", [
+    (1, 6, 0),      # one block
+    (1, 6, 5),      # one block, a start other than 0
+    (13, 3, 2),     # NB not a power of two
+    (64, 17, 9),    # a power of two
+    (100, 2, 1),    # parity-sized
+])
+def test_block_entry_states_match_jax(kind, nb, s, start):
+    """The combine (the doubling on the CPU, K6's combine kernel's plain
+    version) against JAX's associative scan: entry states and the final
+    state, from an int start and from a one-element tensor."""
+    rng = np.random.default_rng(nb * 31 + s)
+    f = entry_case(rng, kind, nb, s)
+    ej, fin_j = je.block_entry_states(jnp.asarray(f), start)
+    for first in (start, torch.tensor([start], dtype=torch.int32)):
+        et, fin_t = te.block_entry_states(torch.as_tensor(f), first)
+        np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
+        assert et.dtype == torch.int32 and fin_t.shape == ()
+        assert int(fin_t) == int(fin_j)
+
+
 @pytest.mark.parametrize("seed,s,blocks,block_size,start", [
     (0, 24, 8, 128, 0), (1, 48, 3, 1024, 7), (2, 6, 1, 64, 0),
 ])

@@ -1,6 +1,7 @@
 """The Hopper kernels K1 (dfa_chain), K2 (dfa_chain_counts), K3
-(kgram_chain), K4 (nfa_active_scan), K5 (nfa_tp_scan) and K6 (dfa_block_fns)
-against their plain versions, on the card, bit for bit.
+(kgram_chain), K4 (nfa_active_scan), K5 (nfa_tp_scan) and K6 (dfa_block_fns
+and its combine, dfa_fn_combine) against their plain versions, on the card,
+bit for bit.
 
 Every test here needs a CUDA card and nvcc and skips without them. The file
 imports no JAX and no conftest helper, so that it runs where JAX is absent:
@@ -426,23 +427,61 @@ def test_api_on_card_matches_cpu(cuda):
                                   want.match_positions[0])
 
 
-@pytest.mark.parametrize("c,s,nb,b", [
-    (2, 2, 333, 1024),        # a parity automaton: many blocks a round
-    (3, 4, 64, 1000),         # (aa)*b reversed, a block size not of 16
-    (36, 836, 70, 1024),      # Aho-Corasick-sized: uint16 table, a block a round
-    (256, 300, 5, 64),        # 256 classes
-    (40, 5000, 9, 256),       # above shared memory: the table in global memory
-    (2, 70_000, 3, 32),       # S above uint16: uint32 entries or global
-])
-def test_dfa_block_fns_matches_plain(cuda, c, s, nb, b):
-    """K6 pass 1 against its plain version, with class ids out of range
-    (they step to state 0) on the last block."""
-    rng = np.random.default_rng(s)
-    table = torch.as_tensor(rng.integers(0, s, size=(c, s)).astype(np.int32),
-                            device=cuda)
-    cls = rng.integers(0, c, size=(nb, b)).astype(np.uint8)
+def block_fn_case(rng, kind, c, s, nb, b):
+    """A (C, S) table and (NB, B) uint8 class ids of one kind: "random";
+    "narrow" (every entry in states 0-2: at most 3 chains after a byte);
+    "permutation" (every class permutes the states: no two chains ever
+    meet); "reset" (class 0 sends every state to one state, and every
+    block but the last starts with it: all chains merge at byte 1);
+    "late" (permutations, and the reset class only after the last merge
+    check). Out-of-range class ids (255) on the last block, which step to
+    state 0."""
+    if kind == "random":
+        table = rng.integers(0, s, size=(c, s))
+    elif kind == "narrow":  # every class leads into states 0-2: packs of 3
+        table = rng.integers(0, 3, size=(c, s))
+    else:
+        table = np.stack([rng.permutation(s) for _ in range(c)])
+    cls = rng.integers(0, c, size=(nb, b))
+    if kind in ("reset", "late"):
+        table[0] = rng.integers(0, s)
+        cls = rng.integers(1, c, size=(nb, b))
+        if kind == "reset":
+            cls[:-1, 0] = 0
+        else:
+            last = 8
+            while last * 2 < b:
+                last *= 2
+            cls[::2, last + (b - last) // 2] = 0
     if c < 256:
         cls[-1, ::7] = 255
+    return table.astype(np.int32), cls.astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind,c,s,nb,b", [
+    ("random", 2, 2, 333, 1024),         # a parity automaton: a block a thread
+    ("random", 3, 4, 64, 1000),          # (aa)*b reversed, a block size not of 16
+    ("random", 10, 23, 200, 5),          # a block shorter than the first check
+    ("random", 7, 33, 100, 333),         # S just above a warp: a block a warp
+    ("random", 36, 836, 70, 1024),       # Aho-Corasick-sized: uint16 table, merging
+    ("random", 256, 300, 5, 64),         # 256 classes
+    ("random", 40, 5000, 9, 256),        # above shared memory: global table, merging
+    ("random", 2, 70_000, 3, 32),        # S above uint16: global table, no checks
+    ("reset", 36, 836, 40, 1024),        # every chain merges at byte 1: packed
+    ("reset", 36, 836, 100, 9),          # packed, one byte after the pack
+    ("narrow", 36, 836, 70, 1000),       # three chains a block packed, B not of 16
+    ("narrow", 40, 5000, 5, 64),         # global table: no packing above a pass
+    ("reset", 5, 64, 50, 77),
+    ("late", 36, 836, 20, 1024),         # merges only after the last check
+    ("permutation", 36, 836, 30, 1024),  # never merges
+    ("permutation", 36, 1500, 12, 1024),  # never merges; S above a pass of 1,024 chains
+    ("permutation", 2, 32_767, 3, 40),   # the largest uint16 table: no room for checks
+])
+def test_dfa_block_fns_matches_plain(cuda, kind, c, s, nb, b):
+    """K6 pass 1 against its plain version on each route, bit for bit."""
+    rng = np.random.default_rng(s + b)
+    table, cls = block_fn_case(rng, kind, c, s, nb, b)
+    table = torch.as_tensor(table, device=cuda)
     cls = torch.as_tensor(cls, device=cuda)
     before = hopper_dfa.LAUNCHES["dfa_block_fns"]
     got = hopper_dfa.dfa_block_fns(table, cls)
@@ -451,9 +490,71 @@ def test_dfa_block_fns_matches_plain(cuda, c, s, nb, b):
     assert torch.equal(got, hopper_dfa.dfa_block_fns_plain(table, cls))
 
 
+@pytest.mark.parametrize("c,s,b,route", [
+    (2, 2, 1024, ("block a thread", "shared uint32", 2, 0, False, 128)),
+    (3, 4, 1000, ("block a thread", "shared uint32", 4, 0, False, 128)),
+    (10, 23, 1024, ("block a thread", "shared uint32", 24, 0, False, 128)),
+    (7, 33, 1024, ("block a warp", "shared uint16", 2, 7, True, 16 * 32)),
+    (36, 836, 1024, ("block a warp", "shared uint16", 27, 7, True, 10 * 32)),
+    (36, 836, 16, ("block a warp", "shared uint16", 27, 1, True, 10 * 32)),
+    (36, 836, 8, ("block a warp", "shared uint16", 27, 0, False, 16)),
+    (36, 836, 5, ("block a warp", "shared uint16", 27, 0, False, 16)),
+    (36, 1500, 1024, ("block a warp", "shared uint16", 32, 7, False, 9)),
+    (40, 5000, 256, ("block a warp", "global", 32, 5, False, 12)),
+    (2, 32_767, 40, ("block a warp", "shared uint16", 32, 0, False, 16)),
+    (2, 70_000, 32, ("block a warp", "global", 32, 0, False, 16)),
+])
+def test_dfa_block_fns_route(cuda, c, s, b, route):
+    """The route K6 pass 1 takes on an H100 (227 KB of shared memory a
+    block): a block a thread up to 32 states, else a block a warp with merge
+    checks after 8, 16, ... bytes wherever the owner tables fit, and packing
+    where a pass holds every start state and the block outlasts the first
+    check."""
+    got = hopper_dfa.dfa_block_fns_route(c, s, 65536, b)
+    keys = ("route", "table", "chains_per_lane", "merge_checks", "packed",
+            "blocks_per_cta")
+    assert tuple(got[k] for k in keys) == route
+
+
+def combine_case(rng, kind, nb, s):
+    """(NB, S) int32 block functions of one kind: "random", "constant",
+    "identity", "permutation", or "mixed" (random, every third constant)."""
+    if kind == "constant":
+        f = np.repeat(rng.integers(0, s, size=(nb, 1)), s, axis=1)
+    elif kind == "identity":
+        f = np.tile(np.arange(s), (nb, 1))
+    elif kind == "permutation":
+        f = np.stack([rng.permutation(s) for _ in range(nb)])
+    else:
+        f = rng.integers(0, s, size=(nb, s))
+        if kind == "mixed":
+            f[::3] = rng.integers(0, s, size=(len(f[::3]), 1))
+    return f.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "constant", "identity",
+                                  "permutation", "mixed"])
+@pytest.mark.parametrize("nb,s", [(1, 5), (7, 3), (1000, 2), (5000, 33),
+                                  (20_073, 836), (3, 5000), (65_536, 2)])
+def test_dfa_fn_combine_matches_doubling(cuda, kind, nb, s):
+    """K6's combine against its plain version (the doubling), from state 0,
+    from the last state and from a start held in a tensor on the card."""
+    rng = np.random.default_rng(nb + s)
+    fns = torch.as_tensor(combine_case(rng, kind, nb, s), device=cuda)
+    for start in (0, s - 1, torch.tensor([s // 2], dtype=torch.int32, device=cuda)):
+        before = hopper_dfa.LAUNCHES["dfa_fn_combine"]
+        entry, final = hopper_dfa.dfa_fn_combine(fns, start)
+        torch.cuda.synchronize()
+        assert hopper_dfa.LAUNCHES["dfa_fn_combine"] == before + 1
+        want_entry, want_final = hopper_dfa.dfa_fn_combine_plain(fns, start)
+        assert torch.equal(entry, want_entry)
+        assert final.shape == () and int(final) == int(want_final)
+
+
 def test_exact_fallback_on_card_matches_cpu(cuda, monkeypatch):
-    """The blocked scan on the card (K6, then K1's full mode), in groups of
-    blocks, equals the CPU's plain path."""
+    """The blocked scan on the card (K6 pass 1, its combine, then K1's full
+    mode), in groups of blocks, equals the CPU's plain path, and launches
+    pass 1 and the combine once a group."""
     from regex_fpga_tpu_torch.ops import dfa_engine
     from regex_fpga_tpu_torch.ops.dfa_engine import dfa_scan_blocked
     from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
@@ -466,10 +567,14 @@ def test_exact_fallback_on_card_matches_cpu(cuda, monkeypatch):
     want = dfa_scan_blocked(cpu, torch.as_tensor(stream), start=5)
     for group in (1, 3, 40):
         monkeypatch.setattr(dfa_engine, "FN_GROUP_BYTES", group * 4 * 97)
+        before = dict(hopper_dfa.LAUNCHES)
         got = dfa_scan_blocked(card, torch.as_tensor(stream, device=cuda),
                                start=5)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+        groups = -(-40 // group)
+        for name in ("dfa_block_fns", "dfa_fn_combine"):
+            assert hopper_dfa.LAUNCHES[name] == before[name] + groups
 
 
 def random_nfa(rng, n_states, n_edges, n_accept, n_bytes=256):

@@ -44,7 +44,16 @@ Cases (CUDA events; each the mean of REPS launches after one warm-up):
   l7-corpus NFA over the same 64 flows of 1 MiB and the Snort-corpus NFA
   over 132 flows of 64 KiB of its traffic, from the start state; K5's
   sharded step (nfa_tp_scan_sharded, a launch a byte, all states on one
-  rank) on the l7-corpus NFA over 4 flows of 4 KiB; and the latency of a
+  rank) on the l7-corpus NFA over 4 flows of 4 KiB; K6 pass 1
+  (dfa_block_fns) over 65,536 blocks x 1,024 on the 300-keyword
+  Aho-Corasick DFA (36, 836) and the class ids of random bytes, on a parity
+  automaton (2, 2) over random bytes, on the reversed (aa)*b DFA (3, 4) over
+  runs of a's and b's, and on a seeded permutation automaton (36, 836)
+  whose chains never meet, over random class ids; K6's combine
+  (dfa_engine.block_entry_states, from state 1, in the groups that
+  dfa_scan_blocked makes: a tree without the combine kernel runs its
+  doubling) over the Aho-Corasick and the parity block functions (S = 836
+  and 2) of the same blocks; and the latency of a
   dependent shared-memory load
   (smem_chase, one warp: the difference of 8,192 and 4,096 steps), which is
   the floor under a chain step.
@@ -64,7 +73,8 @@ MIB = 1 << 20
 SEED = 20261016
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = {"k4 l7 64x1MiB": 3, "k5 l7 64x1MiB": 3, "k5 snort 132x64KiB": 5,
-        "k5 step l7 4x4KiB": 5}  # every other case: 20
+        "k5 step l7 4x4KiB": 5, "k6 combine S=836 65536 blocks": 5,
+        "k6 combine S=2 65536 blocks": 5}  # every other case: 20
 FRAG = (b"The quick brown fox jumps over 1234 lazy dogs, it's 99.5% fine!  "
         b"pre-split   benchmark text \xc3\xa9t\xc3\xa9 2026... ")
 WORDS = [w % i for i in range(300)
@@ -77,8 +87,9 @@ def make_inputs(path: str) -> None:
     sys.path.insert(0, ROOT)
     from regex_fpga_tpu_torch.models import (LazyDfa, build_aho_corasick,
                                              build_tokenizer_dfa,
-                                             gen_l7_traffic, gen_traffic,
-                                             l7_corpus_nfa, snort_corpus_nfa)
+                                             compile_pattern, gen_l7_traffic,
+                                             gen_traffic, l7_corpus_nfa,
+                                             snort_corpus_nfa)
     from regex_fpga_tpu_torch.ops.kgram import build_kgram
     from regex_fpga_tpu_torch.ops.lazy_scan import _pad_for
     from regex_fpga_tpu_torch.ops.tables import build_dfa_tables, build_nfa_csr
@@ -98,6 +109,10 @@ def make_inputs(path: str) -> None:
     ac = build_dfa_tables(ac_dfa.table, ac_dfa.accept)
     kg = build_kgram(tok, levels=2)
     text = np.resize(np.frombuffer(FRAG, np.uint8), 64 * MIB)
+    noise = rng.integers(0, 256, size=64 * MIB, dtype=np.uint8)
+    rev_dfa = compile_pattern(r"(aa)*b", anchored=False, reverse=True)
+    rev = build_dfa_tables(rev_dfa.table, rev_dfa.accept)
+    ab = np.where(rng.random(64 * MIB) < 0.9999, ord("a"), ord("b")).astype(np.uint8)
     np.savez(
         path,
         tok_table=tok.table.numpy(), tok_accept=tok.accept.numpy(),
@@ -121,6 +136,15 @@ def make_inputs(path: str) -> None:
         snort_offsets=snort_csr.offsets.numpy(), snort_targets=snort_csr.targets.numpy(),
         snort_class_of=snort_csr.class_of.numpy(), snort_accept=snort_csr.accept.numpy(),
         snort_flows=np.resize(snort, 132 * 64 * 1024).reshape(132, 64 * 1024),
+        k6_ac_cls=ac.class_of.numpy()[noise].astype(np.uint8).reshape(65536, 1024),
+        k6_parity_table=np.array([[1, 0], [0, 1]], dtype=np.int32),
+        k6_parity_cls=(noise >= 128).astype(np.uint8).reshape(65536, 1024),
+        k6_rev_table=rev.table.numpy(),
+        k6_rev_cls=rev.class_of.numpy()[ab].astype(np.uint8).reshape(65536, 1024),
+        k6_perm_table=np.stack([rng.permutation(ac.table.shape[1])
+                                for _ in range(ac.table.shape[0])]).astype(np.int32),
+        k6_perm_cls=rng.integers(0, ac.table.shape[0], size=(65536, 1024),
+                                 dtype=np.uint8),
     )
 
 
@@ -135,6 +159,8 @@ def time_tree(tree: str, inputs: str, only: list[str]) -> dict:
     from regex_fpga_tpu_torch.ops import hopper_kgram as hk
     from regex_fpga_tpu_torch.ops import hopper_nfa as hn
     from regex_fpga_tpu_torch.ops import kgram as kgram_ops
+    from regex_fpga_tpu_torch.ops.dfa_engine import (FN_GROUP_BYTES,
+                                                     block_entry_states)
     from regex_fpga_tpu_torch.ops.tables import NfaCsr, build_dfa_tables
 
     if not os.path.abspath(_build.__file__).startswith(os.path.abspath(tree) + os.sep):
@@ -227,6 +253,25 @@ def time_tree(tree: str, inputs: str, only: list[str]) -> dict:
                 "smem_chase")
         return lambda: (event_ms(run(8192), 20) - event_ms(run(4096), 20)) / 4096 * 1e6
 
+    def k6(table, cls):
+        return lambda: hd.dfa_block_fns(t[table], t[cls])
+
+    def combine(table, cls):
+        """The combine over these blocks' functions (made once, untimed, by
+        this tree's pass 1), in dfa_scan_blocked's groups, from state 1."""
+        fns = {}
+
+        def run():
+            if not fns:
+                f = hd.dfa_block_fns(t[table], t[cls])
+                group = max(1, FN_GROUP_BYTES // (4 * f.shape[1]))
+                fns["groups"] = [f[g:g + group] for g in range(0, f.shape[0], group)]
+            cur = torch.ones(1, dtype=torch.int32, device=dev)
+            for f in fns["groups"]:
+                _, cur = block_entry_states(f, cur)
+            return cur
+        return run
+
     cases = {
         "k1 tokenizer 65536x1024": lambda: hd.dfa_chain(
             t["tok_table"], t["tok_accept"], tok_cls, tok_ent),
@@ -259,6 +304,12 @@ def time_tree(tree: str, inputs: str, only: list[str]) -> dict:
         "k5 l7 64x1MiB": k5(csr, l7_flows),
         "k5 snort 132x64KiB": k5(snort_csr, t["snort_flows"]),
         "k5 step l7 4x4KiB": k5(csr, l7_step, step=True),
+        "k6 aho-corasick (36,836) 65536x1024": k6("ac_table", "k6_ac_cls"),
+        "k6 parity (2,2) 65536x1024": k6("k6_parity_table", "k6_parity_cls"),
+        "k6 reversed (aa)*b (3,4) 65536x1024": k6("k6_rev_table", "k6_rev_cls"),
+        "k6 permutation (36,836) 65536x1024": k6("k6_perm_table", "k6_perm_cls"),
+        "k6 combine S=836 65536 blocks": combine("ac_table", "k6_ac_cls"),
+        "k6 combine S=2 65536 blocks": combine("k6_parity_table", "k6_parity_cls"),
     }
     def wanted(name):
         return not only or any(word in name for word in only)
