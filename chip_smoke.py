@@ -23,7 +23,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    warmed main path launches) and K4 (nfa_active_scan) on both of its
    routes: the l7-corpus NFA (CSR in shared memory, a forced overflow
    included) and a Snort-corpus prefix (CSR in global memory); then K4
-   alone on the main path's 64 flows of 1 MiB;
+   alone on the main path's 64 flows of 1 MiB; then the package surface:
+   every name of the package-level __all__ lists (ops, utils, models,
+   parallel) and of utils.native resolves with no JAX loaded, and
+   ops.dfa_scan_blocked (Aho-Corasick over 64 MiB of keyword traffic, its
+   K6, combine and K1 launches counted from 0) and
+   utils.native.nfa_match_positions_native (the l7-corpus NFA over 128 KiB)
+   equal a serial native walk and the oracle's trace;
 3. DFA main path: the tokenizer and a 300-keyword Aho-Corasick matcher
    through the port's API at a 64 MiB chunk and 65,536 lanes, each call
    timed as the median of REPEATS runs; every result is held to the same
@@ -82,8 +88,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    chain of B dependent loads, or the loads this data's merging needs at
    the issue rate); K6's combine (dfa_fn_combine) against the doubling at
    S = 2, 3 and 836 in dfa_scan_blocked's groups, from a start other than
-   0, constant functions mixed in; the DfaMatcher calls that take the
-   exact fallback, each with its GB/s and a split of its time (class map,
+   0, constant functions mixed in; the combine's contract on the card
+   (dfa_engine.block_entry_states raises the CPU's ValueError on a function
+   entry or a tensor start outside [0, S), before any launch); the
+   DfaMatcher calls that take the exact fallback (one combine a group, and
+   no range check inside them), each with its GB/s and a split of its time (class map,
    pass 1, combine, pass 2, counts; CUDA events); the k-gram gate sweep (K2 and K3 at
    k = 2, 4 and 8 for S = 23, 32, 67, 107, 836 and 4,008); and the
    router's priors fitted from this run beside the committed ones;
@@ -729,6 +738,90 @@ def phase_nfa_kernels(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
 
 
 # ---------------------------------------------------------------- phase 3
+
+
+def phase_surface(dev, ac_tables, l7_aut, l7_bytes) -> dict:
+    """The port's package-level surface on the card's machine, where there
+    is no JAX: every name of the ``__all__`` lists of ``ops``, ``utils``,
+    ``models``, ``parallel`` and ``utils.native`` resolves, and no module
+    of JAX or of the JAX package is loaded. Then two calls through those
+    names on real inputs: ``ops.dfa_scan_blocked`` (the exact blocked scan:
+    K6 pass 1, its combine, K1's full mode) with the 300-keyword
+    Aho-Corasick DFA over 64 MiB of keyword traffic, held to a serial walk
+    of the native host walker (counts, final state, match mask); and
+    ``utils.native.nfa_match_positions_native`` with the l7-corpus NFA over
+    128 KiB of l7 traffic, held to the oracle's serial trace of active sets.
+    Returns the kernel launches of the blocked scan, counted from 0 just
+    before it and read just after."""
+    import importlib
+
+    counts = {}
+    for pkg in ("ops", "utils", "models", "parallel", "utils.native"):
+        mod = importlib.import_module(f"regex_fpga_tpu_torch.{pkg}")
+        missing = [n for n in mod.__all__ if not hasattr(mod, n)]
+        check(not missing, f"regex_fpga_tpu_torch.{pkg} exports {missing}")
+        counts[pkg] = len(mod.__all__)
+    jax_mods = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+                      or k.split(".")[0] == "regex_fpga_tpu")
+    check(not jax_mods, f"modules of JAX or the JAX package loaded: {jax_mods}")
+    print(f"surface: package-level names {json.dumps(counts)} all resolve; "
+          f"no module of JAX or of the JAX package is loaded", flush=True)
+
+    from regex_fpga_tpu_torch import native
+    from regex_fpga_tpu_torch.models import nfa_scan_trace
+    from regex_fpga_tpu_torch.ops import build_nfa_tables, dfa_scan_blocked
+    from regex_fpga_tpu_torch.utils.native import nfa_match_positions_native
+
+    rng = np.random.default_rng(SEED + 11)
+    vocab = FRAG.split(b" ") + WORDS[:300]
+    picks = rng.integers(0, len(vocab), size=64 * MIB // 6)
+    text = np.frombuffer(b" ".join(vocab[i] for i in picks.tolist()),
+                         np.uint8)[:64 * MIB].copy()
+    stream = torch.as_tensor(text, device=dev)
+    start = 5
+    reset_launches()
+    res = dfa_scan_blocked(ac_tables, stream, start=start)
+    torch.cuda.synchronize()
+    launches = launch_counters()
+    ms = float(np.median(wall_ms(lambda: dfa_scan_blocked(ac_tables, stream,
+                                                           start=start), 3)))
+    t = ac_tables
+    t0 = time.perf_counter()
+    want_c, want_m, want_f = native.dfa_scan(
+        t.table.cpu().numpy(), t.class_of.cpu().numpy(), t.accept.cpu().numpy(),
+        text, start=start)
+    walk_s = time.perf_counter() - t0
+    check(np.array_equal(res.counts.cpu().numpy(), want_c),
+          "dfa_scan_blocked counts equal the serial walk")
+    check(int(res.final_state) == want_f, "dfa_scan_blocked final state")
+    check(np.array_equal(res.match_mask.cpu().numpy(), want_m),
+          "dfa_scan_blocked match mask equals the serial walk")
+    used = {k: v for k, v in launches.items() if v}
+    check(all(used.get(k, 0) > 0 for k in ("dfa_block_fns", "dfa_fn_combine",
+                                           "dfa_chain")),
+          "dfa_scan_blocked ran K6 pass 1, its combine and K1")
+    print(f"surface: ops.dfa_scan_blocked, Aho-Corasick (36, 836) over 64 MiB of "
+          f"keyword traffic from state {start}: {text.size / ms / 1e6:.3f} GB/s "
+          f"(median of 3: {ms:.2f} ms, data on the card), {int(want_c.sum())} "
+          f"matches; counts, final state and mask equal the native serial walk "
+          f"({walk_s:.2f} s); launched {json.dumps(used)}", flush=True)
+
+    nt = build_nfa_tables(l7_aut)
+    flow = l7_bytes[:128 << 10]
+    t0 = time.perf_counter()
+    got = nfa_match_positions_native(nt.delta.numpy(), nt.class_of.numpy(),
+                                     nt.accept.numpy(), flow)
+    pos_s = time.perf_counter() - t0
+    accepting = set(np.nonzero(l7_aut.out_degree == 0)[0].tolist())
+    history = nfa_scan_trace(l7_aut, flow)
+    want = [i for i in range(flow.size) if history[i] & accepting]
+    check(np.array_equal(got, np.asarray(want, dtype=np.int64)),
+          "nfa_match_positions_native equals the oracle's trace")
+    print(f"surface: utils.native.nfa_match_positions_native, l7-corpus NFA over "
+          f"{flow.size} bytes of l7 traffic (active_cap 1024): {len(got)} match "
+          f"offsets in {pos_s * 1e3:.2f} ms, equal to the oracle's serial trace",
+          flush=True)
+    return launches
 
 
 def phase_main_path(dev):
@@ -1717,6 +1810,47 @@ def combine_groups(fns, start, combine) -> tuple:
     return torch.cat(entries), cur.reshape(())
 
 
+def combine_contract(dev, fns) -> None:
+    """The combine's contract on the card: ``dfa_engine.block_entry_states``
+    with an entry of ``fns`` outside [0, S), or with a tensor start outside
+    it, raises the CPU's ``ValueError``, message and all, and launches no
+    combine; in range it equals the CPU's doubling."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+    from regex_fpga_tpu_torch.ops.dfa_engine import block_entry_states
+
+    s = fns.shape[1]
+    one = torch.tensor([1], dtype=torch.int32)
+    got = block_entry_states(fns, one.to(dev))
+    want = block_entry_states(fns.cpu(), one)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "block_entry_states on the card equals the CPU's")
+    cases = []
+    for value in (-1, s):
+        bad = fns.clone()
+        bad[fns.shape[0] // 2, 1] = value
+        cases.append((f"entry {value}", bad, one))
+        cases.append((f"start {value}", fns,
+                      torch.tensor([value], dtype=torch.int32)))
+    for name, f, start in cases:
+        messages = []
+        for i, where in enumerate((dev, torch.device("cpu"))):
+            before = hd.LAUNCHES["dfa_fn_combine"]
+            try:
+                block_entry_states(f.to(where), start.to(where))
+            except ValueError as err:
+                messages.append(str(err))
+            check(len(messages) == i + 1,
+                  f"block_entry_states raises on {name} ({where})")
+            check(hd.LAUNCHES["dfa_fn_combine"] == before,
+                  f"no combine launched on {name} ({where})")
+        check(messages[0] == messages[1],
+              f"{name}: the card's error {messages[0]!r} is the CPU's "
+              f"{messages[1]!r}")
+        print(f"fallback: combine contract, {name} of S = {s}: block_entry_states "
+              f"raises ValueError({messages[0]!r}) on the card as on the CPU, "
+              f"before any launch", flush=True)
+
+
 def phase_fallback(dev, ac_tables, rng):
     """K6 against its plain versions, bit for bit (tolerance 0): pass 1
     (dfa_block_fns) on the reversed (aa)*b automaton and a parity automaton
@@ -1834,6 +1968,7 @@ def phase_fallback(dev, ac_tables, rng):
               f"bit-exact against the doubling (max_abs_err {e}, tolerance 0)",
               flush=True)
     check(cerr == 0, f"dfa_fn_combine differs from the doubling by {cerr}")
+    combine_contract(dev, combine_fns["S=3 random"])
 
     def entry(main, others):
         return {"max_abs_err": main.get("max_abs_err", 0), "ms": main["ms"],
@@ -2065,6 +2200,16 @@ def phase_router(dev, ids, payloads, snort_auto, ac_text, snort_bytes,
         "reversed (aa)*b 16 MiB": (api.DfaMatcher(fb["rev"], pcfg, device=dev),
                                    fb["ab"][:16 * MIB]),
     }
+    from regex_fpga_tpu_torch.ops import dfa_engine, hopper_dfa
+
+    range_checks = []  # the combine's range check waits for the device:
+    checker = hopper_dfa.check_fn_range  # the fallback calls must not make it
+
+    def counted_check(*a, **kw):
+        range_checks.append(1)
+        return checker(*a, **kw)
+
+    dfa_engine.check_fn_range = hopper_dfa.check_fn_range = counted_check
     before, aside = launch_counters(), {}
     for name, (m, data) in fb_calls.items():
         r = m.scan(data)
@@ -2083,12 +2228,17 @@ def phase_router(dev, ids, payloads, snort_auto, ac_text, snort_bytes,
               f"rest (upload, the discarded fast scan, host work) {other:.2f}",
               flush=True)
     after = launch_counters()
+    dfa_engine.check_fn_range = hopper_dfa.check_fn_range = checker
     used = {k: after[k] - before[k] - aside.get(k, 0) for k in after
             if after[k] - before[k] - aside.get(k, 0) > 0}
-    print(f"router: fallback calls launched {json.dumps(used)}", flush=True)
+    print(f"router: fallback calls launched {json.dumps(used)}; the combine's "
+          f"range check ran {len(range_checks)} times in them", flush=True)
     check(all(used.get(k, 0) > 0 for k in ("dfa_block_fns", "dfa_fn_combine",
                                            "dfa_chain")),
           "the fallback ran K6 pass 1, its combine and K1")
+    check(used["dfa_fn_combine"] == used["dfa_block_fns"],
+          "one combine a group of blocks in the fallback calls")
+    check(not range_checks, "dfa_scan_blocked makes no range check (no wait)")
     # the main path's launches: the routed calls and the fallback calls, not
     # the launches that held K6 to its plain version
     launches = {k: launches[k] + used.get(k, 0) for k in launches}
@@ -2899,6 +3049,8 @@ def main(argv=None) -> int:
         dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes, kernel_times)
 
     done("phase 2 (NFA kernels)")
+    surface_launches = phase_surface(dev, ac_tables, l7_aut, l7_bytes)
+    done("phase 2 (package surface)")
     dfa_launches, calls, ac_text = phase_main_path(dev)
     done("phase 3 (DFA main path)")
     nfa_launches, nfa_calls = phase_nfa_path(dev, snort_aut, snort_bytes,
@@ -2915,9 +3067,9 @@ def main(argv=None) -> int:
     parallel_launches = phase_parallel(dev, snort_ld, snort_aut, snort_bytes,
                                        l7_aut, l7_bytes, kernel_times)
     done("phase 8 (parallel, K5)")
-    launches = {k: dfa_launches[k] + nfa_launches[k] + span_launches[k]
-                + ids_launches[k] + router_launches[k] + parallel_launches[k]
-                for k in KERNELS}
+    launches = {k: surface_launches[k] + dfa_launches[k] + nfa_launches[k]
+                + span_launches[k] + ids_launches[k] + router_launches[k]
+                + parallel_launches[k] for k in KERNELS}
     if args.profile:
         phase_profile(dev, calls + nfa_calls + span_calls + ids_calls, args.out)
 

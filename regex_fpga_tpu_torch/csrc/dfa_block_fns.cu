@@ -98,9 +98,11 @@
 // entries from its unit aggregates, and each warp walks its R functions
 // from its unit's entry, one scalar lookup a block. The longest chain of
 // dependent loads is about R + 16 + (CTAs) lookups instead of log2(NB)
-// passes over all of the functions. Exact for any functions; an entry
-// outside [0, S) in the functions or the start is read as state 0 (the
-// plain version raises there; pass 1 never writes one).
+// passes over all of the functions. Contract (hopper_dfa.dfa_fn_combine):
+// every entry of the functions and the start lie in [0, S). Pass 1 never
+// writes another; dfa_engine.block_entry_states checks functions built
+// elsewhere before it launches this, on the card as on the CPU. The kernel
+// does not check (it reads such an entry as state 0).
 #include "chain_common.cuh"
 
 namespace {

@@ -17,8 +17,9 @@ Also the two IDS automata built from the repository's generated corpora,
 which ``chip_smoke.py`` and the tests scan.
 """
 
-from .coe import write_coe
-from .csr import CsrAutomaton, byte_classes, load_coe
+from .coe import read_coe, write_coe
+from .csr import (CsrAutomaton, byte_classes, from_words, load_coe,
+                  prefix_automaton, split_words)
 from .export_csr import regexes_to_csr
 from .golden import GOLDEN_KEYS, load_golden_histograms
 from .http import HttpBuffers, normalize_uri, parse_http_request
@@ -26,7 +27,7 @@ from .l7 import L7Pattern, load_l7_dir, load_l7_pattern, parse_l7_pattern
 from .l7_corpus import gen_l7_patterns, gen_l7_traffic, write_pat_dir
 from .lazy_dfa import LazyDfa
 from .literals import AhoCorasick, build_aho_corasick
-from .oracle import dfa_step_table, nfa_scan
+from .oracle import dfa_scan_counts, dfa_step_table, nfa_scan, nfa_scan_trace
 from .snort import (
     ByteExtract,
     ByteJump,
@@ -41,6 +42,8 @@ from .snort import (
 from .snort_corpus import gen_community_rules, gen_traffic
 from .regex import (
     CompiledDfa,
+    DfaBlowupError,
+    RegexError,
     compile_pattern,
     contains_backtrack,
     contains_bound,
@@ -50,6 +53,7 @@ from .regex import (
 from .tokenizer_dfa import (
     GPT2_PRESPLIT,
     TokenizerDfa,
+    boundaries_from_flags,
     build_tokenizer_dfa,
 )
 
@@ -60,15 +64,18 @@ __all__ = [
     "ByteTest",
     "CompiledDfa",
     "CsrAutomaton",
+    "DfaBlowupError",
     "GOLDEN_KEYS",
     "GPT2_PRESPLIT",
     "HttpBuffers",
     "IsDataAt",
     "L7Pattern",
     "LazyDfa",
+    "RegexError",
     "SnortContent",
     "SnortRule",
     "TokenizerDfa",
+    "boundaries_from_flags",
     "build_aho_corasick",
     "build_tokenizer_dfa",
     "byte_classes",
@@ -76,7 +83,9 @@ __all__ = [
     "contains_backtrack",
     "contains_bound",
     "contains_lazy",
+    "dfa_scan_counts",
     "dfa_step_table",
+    "from_words",
     "gen_community_rules",
     "gen_l7_patterns",
     "gen_l7_traffic",
@@ -87,6 +96,7 @@ __all__ = [
     "load_l7_pattern",
     "load_snort_rules",
     "nfa_scan",
+    "nfa_scan_trace",
     "normalize_uri",
     "parse_http_request",
     "parse_l7_pattern",
@@ -94,8 +104,11 @@ __all__ = [
     "parse_snort_rules",
     "pcre_to_pattern",
     "l7_corpus_nfa",
+    "prefix_automaton",
+    "read_coe",
     "regexes_to_csr",
     "snort_corpus_nfa",
+    "split_words",
     "write_coe",
     "write_pat_dir",
 ]

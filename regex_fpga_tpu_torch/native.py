@@ -161,11 +161,14 @@ def _check_table_domain(table: np.ndarray, s: int) -> None:
 
 def nfa_match_positions(delta: np.ndarray, class_of: np.ndarray,
                         accept: np.ndarray, stream: np.ndarray,
-                        active_cap: int) -> np.ndarray:
+                        active: np.ndarray | None = None,
+                        active_cap: int = 1024) -> np.ndarray:
     """Byte offsets where an accepting NFA state is active (the native
     active-set walk over the dense (C, S+1, K) table; oracle timing: one
-    byte late, the final position's accept dropped). Raises on active-set
-    overflow. Returns ascending int64 offsets."""
+    byte late, the final position's accept dropped), from the ``active``
+    list (sentinel S pads it; default: the start state 0 in a list of
+    ``active_cap``). Raises on active-set overflow. Returns ascending int64
+    offsets."""
     lib = library()
     _, s1, k = delta.shape
     s = s1 - 1
@@ -173,8 +176,10 @@ def nfa_match_positions(delta: np.ndarray, class_of: np.ndarray,
     class_of = np.ascontiguousarray(class_of, dtype=np.int32)
     accept8 = np.ascontiguousarray(accept, dtype=np.uint8)
     stream = np.ascontiguousarray(stream, dtype=np.uint8)
-    active = np.full(active_cap, s, dtype=np.int32)
-    active[0] = 0
+    if active is None:
+        active = np.full(active_cap, s, dtype=np.int32)
+        active[0] = 0
+    active = np.ascontiguousarray(active, dtype=np.int32)
     cap = max(1024, len(stream) // 4)
     while True:
         out = np.empty(cap, dtype=np.int64)

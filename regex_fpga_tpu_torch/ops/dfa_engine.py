@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .hopper_dfa import dfa_block_fns, dfa_chain, dfa_fn_combine
+from .hopper_dfa import check_fn_range, dfa_block_fns, dfa_chain, dfa_fn_combine
 from .tables import DfaTables
 
 __all__ = [
@@ -45,7 +45,7 @@ FN_GROUP_BYTES = 64 << 20
 class DfaScanResult(NamedTuple):
     counts: torch.Tensor             # (S,) int32 per-state match counts
     final_state: torch.Tensor        # () int32 state after the full stream
-    match_mask: torch.Tensor         # (L,) bool: accept fired before byte i
+    match_mask: torch.Tensor | None  # (L,) bool: accept fired before byte i
     states: torch.Tensor | None = None  # (L,) int32: state before byte i
 
 
@@ -107,7 +107,11 @@ def block_entry_states(block_fns: torch.Tensor,
     entered at ``start`` (an int, or a one-element tensor on the functions'
     device): an exclusive prefix composition of the block functions (K6's
     combine, ``dfa_fn_combine``: a kernel on the card, log-depth doubling
-    on the CPU)."""
+    on the CPU). The functions may come from anywhere, so their range is
+    checked first on either device (``check_fn_range``: one ``aminmax``
+    and one host read): an entry or a ``start`` outside [0, S) raises the
+    same ``ValueError`` on the card as on the CPU."""
+    check_fn_range(block_fns, start)
     return dfa_fn_combine(block_fns, start)
 
 
@@ -116,11 +120,16 @@ def dfa_scan_blocked(
     stream: torch.Tensor,
     block_size: int = 1024,
     start: int = 0,
+    collect_matches: bool = True,
 ) -> DfaScanResult:
     """Block-parallel scan with exact reference match semantics; ``stream``
     is (L,) bytes with L a multiple of ``block_size``. The blocks go
     through in groups of as many as ``FN_GROUP_BYTES`` of block functions
-    hold, each entered in the final state of the one before."""
+    hold, each entered in the final state of the one before. Without
+    ``collect_matches`` the result keeps no match mask and no states.
+
+    Pass 1 writes every function entry in [0, S), so its functions go to
+    the combine unchecked: the scan waits for the device nowhere."""
     l = stream.shape[0]
     if l % block_size:
         raise ValueError("pad stream to a multiple of block_size")
@@ -135,8 +144,8 @@ def dfa_scan_blocked(
     cur = torch.tensor([start], dtype=torch.int32, device=stream.device)
     for g0 in range(0, nb, group):
         cls_g = classes[g0 : g0 + group]
-        entry, cur = block_entry_states(block_transition_functions(tables, cls_g),
-                                        cur)
+        entry, cur = dfa_fn_combine(block_transition_functions(tables, cls_g),
+                                    cur)
         # pass 2: exact rescan of each block from its true entry state (K1's
         # full mode over the block-major class ids: its outputs are stored
         # block-major, so their transposes flatten to stream order)
@@ -144,8 +153,12 @@ def dfa_scan_blocked(
                                     entry, mode="full")
         visited, acc = visited.T.reshape(-1), acc.T.reshape(-1)
         counts += torch.bincount(visited[acc].long(), minlength=s)[:s]
-        masks.append(acc)
-        states.append(visited)
+        if collect_matches:
+            masks.append(acc)
+            states.append(visited)
+    if not collect_matches:
+        return DfaScanResult(counts=counts.to(torch.int32),
+                             final_state=cur.reshape(()), match_mask=None)
     empty = torch.zeros(0, dtype=torch.int32, device=stream.device)
     return DfaScanResult(
         counts=counts.to(torch.int32),

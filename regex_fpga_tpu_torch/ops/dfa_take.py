@@ -97,22 +97,25 @@ def dfa_scan_take(table: torch.Tensor, classes: torch.Tensor,
 
 
 def dfa_scan_take_counts(table: torch.Tensor, classes: torch.Tensor,
-                         visits_acc: torch.Tensor, accept: torch.Tensor,
-                         num_blocks: int = 1024, start=0, max_iters: int = 16,
-                         sync_overlap: int = 64,
-                         sync_state: int = 0) -> TakeCountsResult:
+                         visits_acc: torch.Tensor, num_blocks: int = 1024,
+                         start=0, max_iters: int = 16, sync_overlap: int = 64,
+                         sync_state: int = 0, *,
+                         accept: torch.Tensor | None = None) -> TakeCountsResult:
     """Chunk scan with visit counting on the device.
 
-    The count pass is K2 with ``accept``, which the caller makes "accepting
-    subset states, plus the unknown state M": ``visits_acc[s]`` then gains
-    the chunk's visits of every such state, and 0 for every other. Those
-    are exactly the entries that ``LazyDfa.accept_counts`` (accepting
-    subsets) and ``unknown_hit`` (state M) read; the JAX engine counts every
-    state. The visits are added only when the chunk is clean (converged and
-    off the frontier); otherwise ``visits_acc`` comes back unchanged and the
+    The count pass is K2 with ``accept``: ``visits_acc[s]`` gains the
+    chunk's visits of every state in ``accept``, and 0 for every other.
+    Without ``accept`` every state is counted, as in the JAX engine. The
+    lazy loop passes "accepting subset states, plus the unknown state M",
+    exactly the entries that ``LazyDfa.accept_counts`` (accepting subsets)
+    and ``unknown_hit`` (state M) read, so ``accept`` must hold state M.
+    The visits are added only when the chunk is clean (converged and off
+    the frontier); otherwise ``visits_acc`` comes back unchanged and the
     caller re-runs the chunk. ``visits_acc`` is not modified in place."""
     m1 = table.shape[1]
-    if accept.shape != (m1,) or not bool(accept[m1 - 1]):
+    if accept is None:
+        accept = torch.ones(m1, dtype=torch.bool, device=table.device)
+    elif accept.shape != (m1,) or not bool(accept[m1 - 1]):
         raise ValueError("accept must be an (M+1,) mask that includes the "
                          "unknown state M")
     cls_seq = _blocks(classes, num_blocks)

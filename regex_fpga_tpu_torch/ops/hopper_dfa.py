@@ -23,6 +23,8 @@ copy. A view with neither stride 1 is made contiguous first.
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors. Out-of-range states and classes step to state 0 and
 never accept, in both versions, as the JAX engines' one-hot lookup does.
+The combine is the exception: it requires its input in range
+(``dfa_fn_combine``, ``check_fn_range``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .. import _build
 
 __all__ = [
     "LAUNCHES",
+    "check_fn_range",
     "dfa_block_fns",
     "dfa_block_fns_plain",
     "dfa_block_fns_route",
@@ -258,14 +261,9 @@ def dfa_block_fns_route(num_classes: int, num_states: int, num_blocks: int,
             "packed": bool((r >> 14) & 1), "blocks_per_cta": r >> 15}
 
 
-def dfa_fn_combine(fns, start=0):
-    """K6's combine. ``fns`` is (NB, S) int32 block functions (NB >= 1),
-    ``start`` an int in [0, S) or a one-element int32 tensor on their
-    device. Returns (entry (NB,) int32, final () int32): entry[n] is the
-    state in which block n is entered when the stream starts in ``start``,
-    final the state after the last block. On the card an entry outside
-    [0, S) in ``fns`` or a tensor ``start`` is read as state 0; the plain
-    version raises there."""
+def _check_combine_args(fns, start) -> None:
+    """What the combine checks without reading the device: the functions'
+    shape and dtype, the start's form, an int start's range."""
     if fns.dim() != 2 or fns.dtype != torch.int32:
         raise TypeError("block functions must be an (NB, S) int32 tensor")
     nb, s = fns.shape
@@ -278,6 +276,46 @@ def dfa_fn_combine(fns, start=0):
             raise ValueError("start must be one element on the functions' device")
     elif not 0 <= int(start) < s:
         raise ValueError(f"start state {start} outside [0, {s})")
+
+
+def check_fn_range(fns, start=0) -> None:
+    """The combine's precondition, checked: every entry of ``fns`` (NB, S)
+    and ``start`` lie in [0, S), else ``ValueError``. One ``aminmax`` over
+    the functions and one host read of it with the start, so on the card
+    it waits for the device."""
+    _check_combine_args(fns, start)
+    s = fns.shape[1]
+    lo, hi = torch.aminmax(fns)
+    vals = [lo.reshape(1), hi.reshape(1)]
+    if isinstance(start, torch.Tensor):
+        vals.append(start.reshape(1).to(torch.int32))
+    vals = torch.cat(vals).tolist()
+    if isinstance(start, torch.Tensor) and not 0 <= vals[2] < s:
+        raise ValueError(f"start state {vals[2]} outside [0, {s})")
+    if vals[0] < 0 or vals[1] >= s:
+        raise ValueError(f"block function entries span [{vals[0]}, {vals[1]}],"
+                         f" outside [0, {s})")
+
+
+def dfa_fn_combine(fns, start=0):
+    """K6's combine. ``fns`` is (NB, S) int32 block functions (NB >= 1),
+    ``start`` an int in [0, S) or a one-element int32 tensor on their
+    device. Returns (entry (NB,) int32, final () int32): entry[n] is the
+    state in which block n is entered when the stream starts in ``start``,
+    final the state after the last block.
+
+    Contract, on both devices: every entry of ``fns`` and ``start`` lie in
+    [0, S). Pass 1 (``dfa_block_fns``) writes no other entry, so
+    ``dfa_scan_blocked`` combines its functions unchecked and never waits
+    for the device here; functions built elsewhere go through
+    ``dfa_engine.block_entry_states``, which checks them with
+    ``check_fn_range`` first. The wrapper checks what needs no device read
+    (shape, dtype, an int start). Out of range, the result is not defined:
+    the kernel does not look (it reads such an entry as state 0), and the
+    plain version raises ``check_fn_range``'s ``ValueError``, a check that
+    costs the CPU no wait."""
+    _check_combine_args(fns, start)
+    nb, s = fns.shape
     if fns.device.type == "cpu":
         return dfa_fn_combine_plain(fns, start)
     _require_cuda(fns)
@@ -305,7 +343,9 @@ def dfa_fn_combine(fns, start=0):
 def dfa_fn_combine_plain(fns, start=0):
     """Plain-torch combine: an exclusive prefix composition of the block
     functions by log-depth doubling (a gather and a copy of every function
-    a round), then the column of ``start``."""
+    a round), then the column of ``start``. Its contract is
+    ``dfa_fn_combine``'s; it checks the range with ``check_fn_range``."""
+    check_fn_range(fns, start)
     prefix = fns
     n = prefix.shape[0]
     d = 1

@@ -119,8 +119,8 @@ def lazy_nfa_scan(
     def counts_pass(classes, start, nb):
         vbuf = torch.zeros(cache.pad + 1, dtype=torch.int32, device=cache.device)
         return dfa_scan_take_counts(
-            cache.table, classes, vbuf, cache.accept, num_blocks=nb,
-            start=start, max_iters=max_iters, sync_state=ld.start,
+            cache.table, classes, vbuf, num_blocks=nb, start=start,
+            max_iters=max_iters, sync_state=ld.start, accept=cache.accept,
         )
 
     while p < n:

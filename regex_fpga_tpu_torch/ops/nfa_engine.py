@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from .hopper_nfa import nfa_active_scan
-from .tables import NfaCsr, host_to_device
+from .tables import (NfaCsr, NfaTables, host_to_device,
+                     nfa_csr_from_tables)
 
 __all__ = ["DEFAULT_ACTIVE_BOUND", "NfaScanResult", "initial_active",
            "nfa_scan", "nfa_scan_batch", "nfa_scan_streams"]
@@ -41,6 +42,13 @@ def initial_active(num_states: int, active_bound: int, n: int = 1,
                      device=device)
     act[:, 0] = 0
     return act
+
+
+def _as_csr(tables: NfaCsr | NfaTables) -> NfaCsr:
+    """K4 reads the CSR layout; dense tables (``build_nfa_tables``, the
+    layout the JAX engine takes) are converted on each call, so pass
+    ``build_nfa_csr``'s to scan many times."""
+    return nfa_csr_from_tables(tables) if isinstance(tables, NfaTables) else tables
 
 
 def _as_bytes(x, device) -> torch.Tensor:
@@ -68,7 +76,8 @@ def nfa_scan_streams(tables: NfaCsr, data: torch.Tensor, starts, lengths,
                                           start_active, counts_init))
 
 
-def nfa_scan(tables: NfaCsr, stream, active_bound: int = DEFAULT_ACTIVE_BOUND,
+def nfa_scan(tables: NfaCsr | NfaTables, stream,
+             active_bound: int = DEFAULT_ACTIVE_BOUND,
              start_active: torch.Tensor | None = None,
              counts_init: torch.Tensor | None = None) -> NfaScanResult:
     """Scan one uint8 stream; returns per-state counts (S,), the final list
@@ -76,7 +85,9 @@ def nfa_scan(tables: NfaCsr, stream, active_bound: int = DEFAULT_ACTIVE_BOUND,
 
     ``start_active`` (A,) and ``counts_init`` (S+1,) resume a stream across
     chunk boundaries: pass the previous chunk's ``final_active`` and its
-    counts with a zero appended."""
+    counts with a zero appended. ``tables`` is an ``NfaCsr`` or the dense
+    ``NfaTables`` of ``build_nfa_tables`` (JAX's layout)."""
+    tables = _as_csr(tables)
     dev = tables.device
     data = _as_bytes(stream, dev).reshape(-1)
     res = nfa_scan_streams(
@@ -90,10 +101,12 @@ def nfa_scan(tables: NfaCsr, stream, active_bound: int = DEFAULT_ACTIVE_BOUND,
                          res.final_active[0], res.overflowed[0])
 
 
-def nfa_scan_batch(tables: NfaCsr, streams,
+def nfa_scan_batch(tables: NfaCsr | NfaTables, streams,
                    active_bound: int = DEFAULT_ACTIVE_BOUND) -> NfaScanResult:
     """Batched scan over (B, L) streams, each from the start list; per-stream
-    counts (B, S), lists (B, A) and flags (B,)."""
+    counts (B, S), lists (B, A) and flags (B,). ``tables`` is an
+    ``NfaCsr`` or the dense ``NfaTables`` (JAX's layout)."""
+    tables = _as_csr(tables)
     data = _as_bytes(streams, tables.device)
     b, l = data.shape
     res = nfa_scan_streams(tables, data.reshape(-1), np.arange(b) * l,

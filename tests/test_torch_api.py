@@ -241,7 +241,8 @@ def test_port_imports_no_jax():
     matcher and its device engines included) and chip_smoke.py import
     neither JAX nor any module of the JAX package, at any depth: after every
     port module is imported and driven, sys.modules holds no regex_fpga_tpu
-    module."""
+    module. That covers the package-level ``__init__`` exports and
+    ``utils.native``."""
     names = chip_smoke_imports()
     assert "regex_fpga_tpu_torch.api" in names
     assert not [n for n in names if n == "jax" or n.startswith("jax.")
@@ -292,6 +293,14 @@ def test_port_imports_no_jax():
         "ids = regex_fpga_tpu_torch.api.compile_snort('alert tcp any any -> any "
         "any (msg:\"a\"; content:\"ab\"; pcre:\"/ab+c/\"; sid:1;)', device='cpu')\n"
         "assert ids.scan([b'xabbc', b'ab']).sids() == [1]\n"
+        "for pkg in ('ops', 'utils', 'models', 'parallel', 'utils.native'):\n"
+        "    mod = importlib.import_module('regex_fpga_tpu_torch.' + pkg)\n"
+        "    assert all(hasattr(mod, n) for n in mod.__all__), pkg\n"
+        "from regex_fpga_tpu_torch.utils.native import dfa_scan_native\n"
+        "import numpy as np\n"
+        "t = np.array([[1, 1], [0, 0]], np.int32)\n"
+        "assert dfa_scan_native(t, np.arange(256) % 2, np.array([0, 1]), "
+        "np.frombuffer(b'ab', np.uint8))[2] == 1\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'regex_fpga_tpu'))\n"
         "assert not bad, bad\n"

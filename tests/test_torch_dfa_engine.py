@@ -106,6 +106,50 @@ def test_block_entry_states_match_jax(kind, nb, s, start):
         assert int(fin_t) == int(fin_j)
 
 
+@pytest.mark.parametrize("bad", ["entry -1", "entry S", "start -1",
+                                 "start S", "int start S"])
+def test_block_entry_states_range_check(bad):
+    """The combine's contract: ``block_entry_states`` checks caller-built
+    functions and a start, and raises ``ValueError`` on an entry or a start
+    outside [0, S) (the card raises the same: test_torch_kernels.py); on
+    in-range functions it equals JAX's."""
+    rng = np.random.default_rng(5)
+    s = 7
+    f = entry_case(rng, "mixed", 40, s)
+    ej, fin_j = je.block_entry_states(jnp.asarray(f), 3)
+    et, fin_t = te.block_entry_states(torch.as_tensor(f), 3)
+    np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
+    assert int(fin_t) == int(fin_j)
+    start = torch.tensor([3], dtype=torch.int32)
+    what, value = bad.rsplit(" ", 1)
+    value = s if value == "S" else int(value)
+    if what == "entry":
+        f[17, 2] = value
+        match = "entries span"
+    elif what == "start":
+        start = torch.tensor([value], dtype=torch.int32)
+        match = "start state"
+    else:
+        start = value
+        match = "start state"
+    with pytest.raises(ValueError, match=match):
+        te.block_entry_states(torch.as_tensor(f), start)
+
+
+def test_blocked_without_matches_matches_jax():
+    """``collect_matches=False`` keeps the counts and the final state and
+    drops the mask, as in JAX."""
+    rng = np.random.default_rng(3)
+    jt, pt = both_tables(*random_dfa_table(rng, 20, 3))
+    stream = rng.integers(0, 256, size=4 * 256).astype(np.uint8)
+    want = je.dfa_scan_blocked(jt, jnp.asarray(stream), 256, 5, False)
+    got = te.dfa_scan_blocked(pt, torch.as_tensor(stream), 256, 5, False)
+    assert want.match_mask is None and got.match_mask is None
+    assert got.states is None
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts))
+    assert int(got.final_state) == int(want.final_state)
+
+
 @pytest.mark.parametrize("seed,s,blocks,block_size,start", [
     (0, 24, 8, 128, 0), (1, 48, 3, 1024, 7), (2, 6, 1, 64, 0),
 ])

@@ -1,9 +1,9 @@
 """Torch port of the lazy-DFA chain scan (regex_fpga_tpu_torch.ops.dfa_take)
 against regex_fpga_tpu.ops.dfa_take on the same seeded inputs. Tolerance:
-none. The counts form is compared on the entries its K2 pass counts (the
-accepting subset states and the unknown state), which are all that
-``LazyDfa.accept_counts`` and ``unknown_hit`` read; on the CPU the passes
-run K1/K2's plain versions."""
+none. The counts form is compared on the entries its K2 pass counts: the
+accepting subset states and the unknown state when ``accept`` is given
+(all that ``LazyDfa.accept_counts`` and ``unknown_hit`` read), every state
+without it; on the CPU the passes run K1/K2's plain versions."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -71,8 +71,8 @@ def test_take_counts_match_jax(warm, clean):
     acc0 = np.arange(len(accept), dtype=np.int32) % 5
     got = tdt.dfa_scan_take_counts(
         torch.as_tensor(table), torch.as_tensor(classes), torch.as_tensor(acc0),
-        torch.as_tensor(accept), num_blocks=32, start=ld.start,
-        sync_state=ld.start)
+        num_blocks=32, start=ld.start, sync_state=ld.start,
+        accept=torch.as_tensor(accept))
     want = jdt.dfa_scan_take_counts(
         jnp.asarray(table), jnp.asarray(classes), jnp.asarray(acc0),
         num_blocks=32, start=ld.start, sync_state=ld.start)
@@ -84,6 +84,24 @@ def test_take_counts_match_jax(warm, clean):
         np.testing.assert_array_equal(got.visits_acc.numpy(), acc0)
 
 
+@pytest.mark.parametrize("warm,num_blocks", [(100_000, 16), (100_000, 32)])
+def test_take_counts_jax_call_counts_every_state(warm, num_blocks):
+    """A call written for JAX (no ``accept``, the parameters positional in
+    JAX's order) counts the visits of every state: the whole accumulator
+    equals JAX's."""
+    ld, table, _, _, classes = snapshot_case(warm)
+    acc0 = np.arange(table.shape[1], dtype=np.int32) % 3
+    got = tdt.dfa_scan_take_counts(
+        torch.as_tensor(table), torch.as_tensor(classes), torch.as_tensor(acc0),
+        num_blocks, ld.start, 16, 64, ld.start)
+    want = jdt.dfa_scan_take_counts(
+        jnp.asarray(table), jnp.asarray(classes), jnp.asarray(acc0),
+        num_blocks, ld.start, 16, 64, ld.start)
+    assert_counts_equal(got, want, np.ones(table.shape[1], bool))
+    assert got.converged and not bool(got.unknown_hit)
+    assert int((got.visits_acc.numpy() - acc0).sum()) == len(classes)
+
+
 def test_final_byte_frontier_escape():
     """A chunk whose LAST transition lands on the unknown state is flagged,
     as in JAX: the sentinel never leaks into the carry."""
@@ -92,8 +110,8 @@ def test_final_byte_frontier_escape():
     acc0 = np.zeros(4, np.int32)
     got = tdt.dfa_scan_take_counts(
         torch.as_tensor(table), torch.zeros(3, dtype=torch.uint8),
-        torch.as_tensor(acc0), torch.as_tensor(accept), num_blocks=1,
-        start=0, sync_overlap=0)
+        torch.as_tensor(acc0), num_blocks=1, start=0, sync_overlap=0,
+        accept=torch.as_tensor(accept))
     want = jdt.dfa_scan_take_counts(
         jnp.asarray(table), jnp.zeros(3, jnp.int32), jnp.asarray(acc0),
         num_blocks=1, start=0, sync_overlap=0)
@@ -121,8 +139,8 @@ def test_non_converging_chain_matches_jax():
         acc0 = np.full(3, 7, np.int32)
         gc = tdt.dfa_scan_take_counts(
             torch.as_tensor(table), torch.as_tensor(classes),
-            torch.as_tensor(acc0), torch.as_tensor(accept), num_blocks=16,
-            start=start, max_iters=3, sync_overlap=3)
+            torch.as_tensor(acc0), num_blocks=16, start=start, max_iters=3,
+            sync_overlap=3, accept=torch.as_tensor(accept))
         wc = jdt.dfa_scan_take_counts(
             jnp.asarray(table), jnp.asarray(classes), jnp.asarray(acc0),
             num_blocks=16, start=start, max_iters=3, sync_overlap=3)
@@ -138,17 +156,17 @@ def test_device_scalar_start_chains_chunks():
     half = len(classes) // 2
     first = tdt.dfa_scan_take_counts(t, torch.as_tensor(classes[:half]),
                                      torch.zeros(len(accept), dtype=torch.int32),
-                                     a, num_blocks=16, start=ld.start)
+                                     num_blocks=16, start=ld.start, accept=a)
     second = tdt.dfa_scan_take_counts(t, torch.as_tensor(classes[half:]),
-                                      first.visits_acc, a, num_blocks=16,
-                                      start=first.final_state)
+                                      first.visits_acc, num_blocks=16,
+                                      start=first.final_state, accept=a)
     again = tdt.dfa_scan_take_counts(t, torch.as_tensor(classes[half:]),
-                                     first.visits_acc, a, num_blocks=16,
-                                     start=int(first.final_state))
+                                     first.visits_acc, num_blocks=16,
+                                     start=int(first.final_state), accept=a)
     assert torch.equal(second.visits_acc, again.visits_acc)
     whole = tdt.dfa_scan_take_counts(t, torch.as_tensor(classes),
                                      torch.zeros(len(accept), dtype=torch.int32),
-                                     a, num_blocks=32, start=ld.start)
+                                     num_blocks=32, start=ld.start, accept=a)
     for r in (first, second, whole):
         assert r.converged and not bool(r.unknown_hit)
     assert torch.equal(second.visits_acc, whole.visits_acc)
@@ -159,5 +177,5 @@ def test_accept_mask_must_cover_unknown():
     table = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown"):
         tdt.dfa_scan_take_counts(table, torch.zeros(4, dtype=torch.uint8),
-                                 torch.zeros(4, dtype=torch.int32),
-                                 torch.zeros(4, dtype=torch.bool), num_blocks=1)
+                                 torch.zeros(4, dtype=torch.int32), num_blocks=1,
+                                 accept=torch.zeros(4, dtype=torch.bool))

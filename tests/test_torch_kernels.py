@@ -551,6 +551,40 @@ def test_dfa_fn_combine_matches_doubling(cuda, kind, nb, s):
         assert final.shape == () and int(final) == int(want_final)
 
 
+@pytest.mark.parametrize("bad", ["entry -1", "entry S", "start -1",
+                                 "start S", "int start S"])
+def test_block_entry_states_range_check_on_card(cuda, bad):
+    """The combine's contract on the card: ``block_entry_states`` raises the
+    CPU's ``ValueError``, message and all, on an entry or a start outside
+    [0, S), before the combine launches; in range it equals the CPU."""
+    from regex_fpga_tpu_torch.ops.dfa_engine import block_entry_states
+
+    rng = np.random.default_rng(5)
+    s = 7
+    f = combine_case(rng, "mixed", 40, s)
+    got = block_entry_states(torch.as_tensor(f, device=cuda), 3)
+    want = block_entry_states(torch.as_tensor(f), 3)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    what, value = bad.rsplit(" ", 1)
+    value = s if value == "S" else int(value)
+    start = 3
+    if what == "entry":
+        f[17, 2] = value
+    elif what == "start":
+        start = torch.tensor([value], dtype=torch.int32)
+    else:
+        start = value
+    messages = []
+    for dev in ("cpu", cuda):
+        first = start.to(dev) if isinstance(start, torch.Tensor) else start
+        before = hopper_dfa.LAUNCHES["dfa_fn_combine"]
+        with pytest.raises(ValueError) as err:
+            block_entry_states(torch.as_tensor(f, device=dev), first)
+        assert hopper_dfa.LAUNCHES["dfa_fn_combine"] == before
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+
+
 def test_exact_fallback_on_card_matches_cpu(cuda, monkeypatch):
     """The blocked scan on the card (K6 pass 1, its combine, then K1's full
     mode), in groups of blocks, equals the CPU's plain path, and launches

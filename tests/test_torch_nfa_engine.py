@@ -81,6 +81,22 @@ def test_random_nfa_matches_jax_and_oracle(seed):
     np.testing.assert_array_equal(got.counts.numpy(), oracle(aut, stream))
 
 
+@pytest.mark.parametrize("seed", [4, 5])
+def test_dense_tables_in_as_in_jax(seed):
+    """A call written for JAX passes ``build_nfa_tables``' dense tables:
+    ``nfa_scan`` and ``nfa_scan_batch`` take them as well as K4's CSR."""
+    rng = np.random.default_rng(seed)
+    aut = random_nfa(rng, n_states=50, n_edges=400, n_accept=5)
+    streams = rng.integers(0, 256, size=(3, 700)).astype(np.uint8)
+    want = nfa_scan_jax(jax_build_nfa_tables(aut), jnp.asarray(streams[0]),
+                        active_bound=64)
+    for tables in (build_nfa_tables(aut), build_nfa_csr(aut)):
+        assert_same(nfa_engine.nfa_scan(tables, streams[0], active_bound=64), want)
+        assert_same(nfa_engine.nfa_scan_batch(tables, streams, active_bound=64),
+                    jax_nfa_scan_batch(jax_build_nfa_tables(aut),
+                                       jnp.asarray(streams), active_bound=64))
+
+
 def test_l7_prefix_matches_jax_and_oracle():
     aut = l7_corpus_nfa()
     stream = l7_bytes(3000)

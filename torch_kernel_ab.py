@@ -50,9 +50,9 @@ Cases (CUDA events; each the mean of REPS launches after one warm-up):
   automaton (2, 2) over random bytes, on the reversed (aa)*b DFA (3, 4) over
   runs of a's and b's, and on a seeded permutation automaton (36, 836)
   whose chains never meet, over random class ids; K6's combine
-  (dfa_engine.block_entry_states, from state 1, in the groups that
-  dfa_scan_blocked makes: a tree without the combine kernel runs its
-  doubling) over the Aho-Corasick and the parity block functions (S = 836
+  (hopper_dfa.dfa_fn_combine unchecked, as dfa_scan_blocked calls it, from
+  state 1, in the groups that dfa_scan_blocked makes: a tree without the
+  combine kernel runs dfa_engine.block_entry_states, its doubling) over the Aho-Corasick and the parity block functions (S = 836
   and 2) of the same blocks; and the latency of a
   dependent shared-memory load
   (smem_chase, one warp: the difference of 8,192 and 4,096 steps), which is
@@ -163,6 +163,9 @@ def time_tree(tree: str, inputs: str, only: list[str]) -> dict:
                                                      block_entry_states)
     from regex_fpga_tpu_torch.ops.tables import NfaCsr, build_dfa_tables
 
+    # a newer block_entry_states checks its input's range first, a wait for
+    # the device that dfa_scan_blocked does not make
+    combine_fn = getattr(hd, "dfa_fn_combine", block_entry_states)
     if not os.path.abspath(_build.__file__).startswith(os.path.abspath(tree) + os.sep):
         raise RuntimeError(f"{_build.__file__} is not the package of {tree}")
     dev = torch.device("cuda")
@@ -268,7 +271,7 @@ def time_tree(tree: str, inputs: str, only: list[str]) -> dict:
                 fns["groups"] = [f[g:g + group] for g in range(0, f.shape[0], group)]
             cur = torch.ones(1, dtype=torch.int32, device=dev)
             for f in fns["groups"]:
-                _, cur = block_entry_states(f, cur)
+                _, cur = combine_fn(f, cur)
             return cur
         return run
 
