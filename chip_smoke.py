@@ -34,7 +34,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    through the port's API at a 64 MiB chunk and 65,536 lanes, each call
    timed as the median of REPEATS runs; every result is held to the same
    call on the CPU (the plain path) or to a host walk, and the launch
-   counts show that each kernel ran;
+   counts show that each kernel ran. With them, at lengths that 65,536 does
+   not divide, each beside its power-of-two neighbour and with its lanes:
+   scan counts, count and the Aho-Corasick scan over 64 MiB - 1, positions
+   over 16 MiB - 1, one 1,383,198-byte stream (beside 1 MiB) and 64 x
+   (1 MiB + 1) (beside 64 x 1 MiB); each is held to a serial native walk and
+   must run at no less than half its neighbour's rate. Then the routes of
+   the tables with the stall class, and the two ways to pad a chunk of a
+   256-class table (int16 ids, or a uint8 prefix and a padded rest), timed;
 4. NFA main path: compile_ruleset on the 35,259-state Snort-corpus content
    NFA ("lazy-device" over one 64 MiB stream, "lazy" over it and over 64
    flows of 1 MiB) and on the 722-state l7-corpus NFA ("active-set" over 64
@@ -148,6 +155,7 @@ import numpy as np
 import torch
 
 MIB = 1 << 20
+SNORT_PAYLOAD = 1_383_198  # the length of the JAX Snort test's large payload
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 REPEATS = 5  # timed runs per API call in phases 3-5; the median is reported
@@ -352,6 +360,16 @@ def phase_device(out_dir):
 # ---------------------------------------------------------------- phase 2
 
 
+def random_global_table(rng, dev):
+    """The random DFA whose (256, 1024) int32 table (1 MiB) exceeds shared
+    memory, from ``rng``'s next two draws."""
+    from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
+
+    big_t = rng.integers(0, 1024, size=(256, 1024)).astype(np.int32)
+    return tables_from_numpy(big_t, np.arange(256), rng.random(1024) < 0.2,
+                             1024, device=dev)
+
+
 def phase_kernels(dev, tok_tables, tok_start, ac_tables):
     """Each kernel against its plain version on the card. Returns per-kernel
     {"max_abs_err", "ms", "plain_ms"} at the main path's shapes."""
@@ -359,13 +377,9 @@ def phase_kernels(dev, tok_tables, tok_start, ac_tables):
     from regex_fpga_tpu_torch.ops import hopper_kgram as hk
     from regex_fpga_tpu_torch.ops.kgram import (build_kgram, kgram_maps,
                                                 map_kgram_classes, pack_ta)
-    from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
 
     rng = np.random.default_rng(SEED)
-    # a random DFA whose (256, 1024) int32 table (1 MiB) exceeds shared memory
-    big_t = rng.integers(0, 1024, size=(256, 1024)).astype(np.int32)
-    big = tables_from_numpy(big_t, np.arange(256), rng.random(1024) < 0.2,
-                            1024, device=dev)
+    big = random_global_table(rng, dev)
     check(not hd.dfa_chain_route("finals", 256, 1024)["table_smem"],
           "the random table takes the global-memory route")
     nb = 65536
@@ -824,6 +838,132 @@ def phase_surface(dev, ac_tables, l7_aut, l7_bytes) -> dict:
     return launches
 
 
+def lanes_text(m, method: str, data: np.ndarray) -> str:
+    """The lanes that the matcher's first chain pass gives a chunk of this
+    call: for a length the lanes do not divide, the stall ids padded in
+    front; for count(), K3's lanes over its steps and the bytes left to the
+    k=1 counts engine."""
+    if isinstance(data, list):  # ragged rows: padded in front to the longest
+        n = min(max(len(row) for row in data), m.config.chunk_bytes)
+        return f"{m._lanes(n)} lanes a row (ragged, stall ids in front)"
+    n = min(data.shape[-1], m.config.chunk_bytes)
+    if method == "kgram_ids":
+        return f"{m.config.num_blocks} lanes (K3 over class ids)"
+    if method == "count":
+        nb = m._lanes(n // 4)
+        rest = n - (n // 4 // nb) * nb * 4
+        return f"K3 {nb} lanes, then {rest} bytes on {m._lanes(rest)} lanes" \
+            if rest else f"K3 {nb} lanes"
+    nb = m._lanes(n)
+    lead = -n % nb
+    return f"{nb} lanes" + (f", {lead} stall ids in front" if lead else "")
+
+
+def odd_against_native_walk(card, calls, odd, got) -> None:
+    """Each odd-length call of phase 3 against an independent serial walk of
+    the native host build: counts, the count, positions (with the
+    end-of-stream match) and each row of a batch."""
+    from regex_fpga_tpu_torch import native
+
+    t0 = time.perf_counter()
+    for label, who, method, args, _ in calls:
+        if label not in odd:
+            continue
+        m = card[who]
+        tab, cls, acc = (t.cpu().numpy() for t in
+                         (m.tables.table, m.tables.class_of, m.tables.accept))
+        rows = args[0] if args[0].ndim == 2 else args[0][None]
+        want = np.zeros((len(rows), m.num_states), np.int64)
+        positions = []
+        for i, row in enumerate(rows):
+            want[i], mask, final = native.dfa_scan(
+                tab, cls, acc, row, m.start, want_mask=method == "scan_positions")
+            end = [len(row)] if m._accept_eof[final] else []
+            want[i, final] += len(end)
+            if mask is not None:
+                positions.append(np.concatenate([np.nonzero(mask)[0], end]))
+        r = got[label]
+        if method == "count":
+            check(r == int(want.sum()), f"{label}: count against the native walk")
+            continue
+        check(np.array_equal(r.counts, want), f"{label}: counts against the "
+              f"native walk")
+        for g, w in zip(r.match_positions or [], positions):
+            check(np.array_equal(g, w), f"{label}: positions against the "
+                  f"native walk")
+    print(f"main: every odd-length call equals a serial native walk "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def stall_routes(card) -> None:
+    """The stall class adds one table row: the tokenizer (10 -> 11 classes)
+    and the Aho-Corasick table (36 -> 37) keep their shared-memory routes in
+    every mode a padded chunk runs, uint8 ids, 65,536 lanes."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+
+    for who, m in card.items():
+        c, s = m.tables.table.shape
+        for mode in ("finals", "mask", "full", "counts"):
+            r0 = hd.dfa_chain_route(mode, c, s, 65536)
+            r1 = hd.dfa_chain_route(mode, c + 1, s, 65536)
+            check(r1["table_smem"] and r1["table"] == r0["table"],
+                  f"{who} {mode}: route {r0} with C={c}, {r1} with C={c + 1}")
+        print(f"main: {who} (C={c} -> {c + 1} with the stall class, S={s}): "
+              f"table {r1['table']} in every mode, as without it", flush=True)
+
+
+def stall_choice_256(dev) -> None:
+    """C = 256 puts the stall id at 256, past uint8. Both ways to pad a
+    64 MiB - 1 chunk of the random (256, 1024) table's class ids, each with
+    its ids built from the device bytes and its K2 launches, CUDA events:
+    (a) int16 ids for the whole chunk, 65,536 lanes, one K2 launch over the
+    stall-extended table; (b) uint8 ids, K2 over the prefix that 65,536 lanes
+    divide, then the carry state read back and K2 over the rest, padded on
+    its own lanes with int16 ids. The API takes (a)."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa as hd
+    from regex_fpga_tpu_torch.ops.tables import stall_extend
+    from regex_fpga_tpu_torch.utils.config import shrink_blocks
+
+    rng = np.random.default_rng(SEED)
+    big = random_global_table(rng, dev)
+    stall = stall_extend(big)
+    w = 64 * MIB - 1
+    raw = torch.as_tensor(rng.integers(0, 256, size=w, dtype=np.uint8), device=dev)
+    lut = big.class_of.to(torch.uint8)
+    nb = shrink_blocks(w, 65536, 64, divisible=False)
+    w1 = w // nb * nb
+    nb2 = shrink_blocks(w - w1, 65536, 64, divisible=False)
+    entries = torch.zeros(nb, dtype=torch.int32, device=dev)
+
+    def padded(cls, lanes):
+        lead = -cls.numel() % lanes
+        ids = torch.full((cls.numel() + lead,), 256, dtype=torch.int16, device=dev)
+        ids[lead:] = cls
+        return ids.reshape(lanes, -1).T
+
+    def int16_whole():
+        ids = padded(torch.index_select(lut, 0, raw.int()), nb)
+        return hd.dfa_chain_counts(stall.table, stall.accept, ids, entries)
+
+    def split():
+        cls = torch.index_select(lut, 0, raw.int())
+        finals, c1 = hd.dfa_chain_counts(big.table, big.accept,
+                                         cls[:w1].reshape(nb, -1).T, entries)
+        carry = torch.full((nb2,), int(finals[-1]), dtype=torch.int32, device=dev)
+        _, c2 = hd.dfa_chain_counts(stall.table, stall.accept,
+                                    padded(cls[w1:], nb2), carry)
+        return c1 + c2
+
+    a_ms, b_ms = event_ms(int16_whole, 10), event_ms(split, 10)
+    routes = [hd.dfa_chain_route("counts", 257, 1024, nb, 1, torch.int16)["table"],
+              hd.dfa_chain_route("counts", 256, 1024, nb, 1, torch.uint8)["table"]]
+    print(f"main: C=256, 64 MiB - 1 of random bytes, ids built and K2: (a) int16 "
+          f"ids, {nb} lanes, one launch (table {routes[0]}): {a_ms:.4f} ms; (b) "
+          f"uint8 ids over {w1} bytes, then {w - w1} bytes as int16 on {nb2} "
+          f"lanes (table {routes[1]}, a read-back between): {b_ms:.4f} ms "
+          f"(means of 10 after a warm-up)", flush=True)
+
+
 def phase_main_path(dev):
     """The port's API at full size. Returns the kernel launch counts, the
     calls, as (label, zero-argument function, bytes) for the profile, and the
@@ -857,6 +997,8 @@ def phase_main_path(dev):
     cpu = {"tok": api.compile_tokenizer(config=cfg, device="cpu"),
            "ac": api.DfaMatcher(ac.dfa, cfg, device="cpu")}
     t16 = text[:16 * MIB]
+    ac_label = f"aho-corasick S={card['ac'].num_states} scan counts 64 MiB"
+    odd_batch = np.resize(noise, 64 * (MIB + 1)).reshape(64, MIB + 1)
     calls = [  # label, matcher, method, args, bytes
         ("tokenizer scan counts 64 MiB", "tok", "scan", (text,), text.size),
         ("tokenizer count (k-gram, raw text in) 64 MiB", "tok", "count", (text,),
@@ -869,9 +1011,31 @@ def phase_main_path(dev):
         ("tokenizer batch 64 x 1 MiB", "tok", "scan", (batch,), batch.size),
         ("tokenizer ragged 64 flows 1 KiB-2 MiB", "tok", "scan", (ragged,),
          int(lens.sum())),
-        (f"aho-corasick S={card['ac'].num_states} scan counts 64 MiB", "ac",
-         "scan", (ac_text,), ac_text.size),
+        (ac_label, "ac", "scan", (ac_text,), ac_text.size),
+        ("tokenizer scan counts 1 MiB", "tok", "scan", (text[:MIB],), MIB),
+        # lengths with few factors of two, each beside its power-of-two
+        # neighbour (ODD): they run on the full lane count, padded
+        ("tokenizer scan counts 64 MiB - 1", "tok", "scan", (text[:-1],),
+         text.size - 1),
+        ("tokenizer count (k-gram, raw text in) 64 MiB - 1", "tok", "count",
+         (text[:-1],), text.size - 1),
+        ("tokenizer scan positions 16 MiB - 1", "tok", "scan_positions",
+         (t16[:-1],), t16.size - 1),
+        (ac_label + " - 1", "ac", "scan", (ac_text[:-1],), ac_text.size - 1),
+        ("tokenizer scan counts 1,383,198 B", "tok", "scan",
+         (text[:SNORT_PAYLOAD],), SNORT_PAYLOAD),
+        ("tokenizer batch 64 x (1 MiB + 1)", "tok", "scan", (odd_batch,),
+         odd_batch.size),
     ]
+    odd = {  # odd-length call -> its power-of-two neighbour
+        "tokenizer scan counts 64 MiB - 1": "tokenizer scan counts 64 MiB",
+        "tokenizer count (k-gram, raw text in) 64 MiB - 1":
+            "tokenizer count (k-gram, raw text in) 64 MiB",
+        "tokenizer scan positions 16 MiB - 1": "tokenizer scan positions 16 MiB",
+        ac_label + " - 1": ac_label,
+        "tokenizer scan counts 1,383,198 B": "tokenizer scan counts 1 MiB",
+        "tokenizer batch 64 x (1 MiB + 1)": "tokenizer batch 64 x 1 MiB",
+    }
 
     def run(m, method, args):
         if method == "scan_positions":
@@ -887,19 +1051,20 @@ def phase_main_path(dev):
         return getattr(m, method)(*args)
 
     reset_launches()
-    got = {}
+    got, rate = {}, {}
     for label, who, method, args, nbytes in calls:
         got[label] = run(card[who], method, args)  # warm-up: lazy tables
         ms = wall_ms(lambda: run(card[who], method, args), REPEATS)
         med = float(np.median(ms))
+        rate[label] = nbytes / med / 1e6
         r = got[label]
         note = ""
         if hasattr(r, "metrics"):
             check(r.metrics.converged, f"{label}: converged")
             note = f", iterations={r.metrics.iterations}, total={r.total}"
-        print(f"main: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
+        print(f"main: {label}: {rate[label]:.3f} GB/s (median of "
               f"{REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max {max(ms):.2f})"
-              f"{note}", flush=True)
+              f"{note}, {lanes_text(card[who], method, args[0])}", flush=True)
     ids_total, ids_final, ids_converged = got[calls[2][0]]
     check(ids_converged and got[calls[1][0]] == ids_total
           + int(card["tok"]._accept_eof[ids_final]),
@@ -908,6 +1073,15 @@ def phase_main_path(dev):
     print(f"main: launches {json.dumps(launches)}", flush=True)
     for name in DFA_PATH:
         check(launches[name] > 0, f"{name} launched on the DFA main path")
+    for label, pow2 in odd.items():
+        print(f"main: {label}: {rate[label] / rate[pow2]:.3f} of the rate of "
+              f"{pow2}", flush=True)
+        check(rate[label] >= 0.5 * rate[pow2],
+              f"{label} runs at {rate[label]:.3f} GB/s, under half of {pow2}'s "
+              f"{rate[pow2]:.3f}")
+    odd_against_native_walk(card, calls, odd, got)
+    stall_routes(card)
+    stall_choice_256(dev)
 
     # the same calls on the plain path (CPU tensors)
     t0 = time.perf_counter()
@@ -946,12 +1120,13 @@ def phase_main_path(dev):
     ptable[:, 0] = 1
     parity = CompiledDfa(table=ptable, accept=np.array([False, True]),
                          start=0, dead=0)
-    pcfg = api.EngineConfig(scan_backend="device", num_blocks=1024,
+    pcfg = api.EngineConfig(scan_backend="device", num_blocks=512,
                             min_block_bytes=1)
     pm = api.DfaMatcher(parity, pcfg, device=dev)
     # 512 lanes of 131 bytes for the fast engine (too many for its Jacobi
-    # budget); 65 blocks of 1024 bytes for the exact blocked scan and a
-    # 512-byte tail for the serial one
+    # budget: lanes of an even length would all be entered in state 0, and
+    # the guesses would hold); 65 blocks of 1024 bytes for the exact blocked
+    # scan and a 512-byte tail for the serial one
     pdata = rng.integers(0, 256, size=1024 * 65 + 512, dtype=np.uint8)
     rep = pm.scan(pdata)
     want, final = host_walk(ptable, np.arange(256), parity.accept, pdata, 0)

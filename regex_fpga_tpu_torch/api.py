@@ -371,16 +371,50 @@ class DfaMatcher:
         """A host array as a tensor on the matcher's device."""
         return host_to_device(arr, self.device)
 
-    def _classes(self, raw: np.ndarray) -> torch.Tensor:
-        """Byte-class ids (uint8) of raw bytes, mapped on the device."""
-        data = self._upload(raw)
-        return torch.index_select(
-            self._class_lut, 0, data.reshape(-1).int()
-        ).reshape(data.shape)
-
-    def _pick_blocks(self, n: int) -> int:
+    def _lanes(self, n: int) -> int:
+        """The chain lanes of a chunk of ``n`` bytes (or k-gram steps): the
+        block rule without its divisibility step, so that a length with few
+        factors of two still fills the card; ``_chunk_ids`` pads the rest."""
         return shrink_blocks(n, self.config.num_blocks,
-                             self.config.min_block_bytes)
+                             self.config.min_block_bytes, divisible=False)
+
+    def _stalled_tables(self) -> DfaTables:
+        """The tables with the stall class appended (cached)."""
+        if self._stall_tables is None:
+            self._stall_tables = stall_extend(self.tables)
+        return self._stall_tables
+
+    def _chunk_ids(self, data: torch.Tensor):
+        """Class ids of one chunk of raw device bytes, (w,) or (N, w), for
+        the chain engines at ``_lanes(w)`` lanes. Returns (tables, ids,
+        lanes, lead). When the lanes divide w, the ids are the mapped bytes
+        (uint8) and the tables the matcher's; otherwise each row is padded
+        AT THE FRONT with ``lead`` stall ids up to a lane multiple, and the
+        tables are the stall-extended ones (the stall id is C, int16 when
+        C = 256).
+
+        Front padding keeps the seam speculation right: every pad step holds
+        the chunk's entry state, which is also what each lane's replay
+        starts from, so the pad lanes guess their entries exactly. Padding
+        at the back would end the chunk in up to ``lanes - 1`` stall steps,
+        whole lanes of them where blocks are short, each guessing the entry
+        state where the chunk's end state holds: a Jacobi round each, and
+        past ``max_iters`` the exact fallback. The caller drops the first
+        ``lead`` positions of a mask or states and subtracts ``lead`` visits
+        of the entry state from counts; the final state is unchanged."""
+        w = data.shape[-1]
+        nb = self._lanes(w)
+        lead = -w % nb
+        cls = torch.index_select(self._class_lut, 0,
+                                 data.reshape(-1).int()).reshape(data.shape)
+        if not lead:
+            return self.tables, cls, nb, 0
+        stall = self.tables.num_classes
+        ids = torch.full((*data.shape[:-1], w + lead), stall,
+                         dtype=torch.uint8 if stall < 256 else torch.int16,
+                         device=self.device)
+        ids[..., lead:] = cls
+        return self._stalled_tables(), ids, nb, lead
 
     # --------------------------------------------------------- host backend
 
@@ -552,10 +586,12 @@ class DfaMatcher:
         ``scan(data).total``.
 
         Uses the k-gram engine (4 bytes per step, exact totals) when the
-        composed class count stays small, with any tail shorter than one
-        step finished by the serial scan from the k-gram carry state. Where
-        the k-gram engine is off (more than ``KGRAM_MAX_STATES`` states),
-        the engine router may send the count to the host walker."""
+        composed class count stays small: on each chunk's longest prefix of
+        whole steps that its full lane count divides, then the k=1 counts
+        engine over the rest (fewer than lanes x k bytes, padded with the
+        stall class) from the k-gram carry state. Where the k-gram engine
+        is off (more than ``KGRAM_MAX_STATES`` states), the engine router
+        may send the count to the host walker."""
         streams = _as_streams(data)
         if streams and self._kgram() is None and self._host_backend(
                 len(streams), sum(len(s_) for s_ in streams)):
@@ -577,7 +613,7 @@ class DfaMatcher:
             for off in range(0, len(stream), cb):
                 chunk = stream[off : off + cb]
                 steps = len(chunk) // kg.k
-                nb = self._pick_blocks(max(steps, 1))
+                nb = self._lanes(max(steps, 1))
                 main_len = (steps // nb) * nb * kg.k
                 if main_len:
                     # the raw text goes to the k-gram kernel, which maps
@@ -591,11 +627,9 @@ class DfaMatcher:
                         break
                     stream_total += int(res.total)
                     cur = int(res.final_state)
-                tail = chunk[main_len:]
-                if len(tail):
-                    ser = dfa_scan_serial(self.tables, tail, start=cur)
-                    stream_total += int(ser.counts.sum())
-                    cur = int(ser.final_state)
+                if main_len < len(chunk):
+                    c, cur, _, _ = self._counts_chunk(chunk[main_len:], cur)
+                    stream_total += int(c.sum())
             if diverged:  # non-synchronizing automaton: exact fallback over
                 # the whole stream (partial totals discarded)
                 total += int(self.scan([stream]).counts.sum())
@@ -620,11 +654,9 @@ class DfaMatcher:
         cur = self.start
         for off in range(0, len(stream), cb):
             raw = stream[off : off + cb]
-            res = dfa_scan_fast(
-                self.tables, self._classes(raw),
-                num_blocks=self._pick_blocks(len(raw)), start=cur,
-                max_iters=self.config.max_iters,
-            )
+            tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
+            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                max_iters=self.config.max_iters)
             if not bool(res.domain_ok):
                 raise RuntimeError(
                     "device DFA pass produced out-of-domain state ids: "
@@ -634,10 +666,12 @@ class DfaMatcher:
                 converged = False
                 res = self._exact_fallback(raw, cur)
                 counts += res.counts
+                chunk_mask = res.match_mask
             else:
-                counts += torch.bincount(res.states[res.match_mask].long(),
+                chunk_mask = res.match_mask[lead:]
+                counts += torch.bincount(res.states[lead:][chunk_mask].long(),
                                          minlength=self.num_states)
-            mask[off : off + len(raw)] = res.match_mask
+            mask[off : off + len(raw)] = chunk_mask
             cur = int(res.final_state)
             iters = max(iters, res.iterations)
         self._last_final = cur
@@ -652,12 +686,9 @@ class DfaMatcher:
         data = self._upload(raw_chunk)
         if reverse:
             data = torch.flip(data, (0,))
-        classes = torch.index_select(self._class_lut, 0, data.int())
-        res = dfa_scan_fast(
-            self.tables, classes,
-            num_blocks=self._pick_blocks(len(raw_chunk)), start=cur,
-            max_iters=self.config.max_iters, emit="mask",
-        )
+        tables, ids, nb, lead = self._chunk_ids(data)
+        res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                            max_iters=self.config.max_iters, emit="mask")
         if not bool(res.domain_ok):
             raise RuntimeError(
                 "device DFA pass produced out-of-domain state ids: corrupt table"
@@ -665,7 +696,8 @@ class DfaMatcher:
         if not res.converged:
             res = self._exact_fallback(raw_chunk[::-1] if reverse else raw_chunk,
                                        cur)
-        return res.match_mask, int(res.final_state)
+            return res.match_mask, int(res.final_state)
+        return res.match_mask[lead:], int(res.final_state)
 
     def _scan_match_positions(self, stream: np.ndarray,
                               reverse: bool = False) -> np.ndarray:
@@ -710,11 +742,9 @@ class DfaMatcher:
         cb = self.config.chunk_bytes
         for off in range(0, len(stream), cb):
             raw = stream[off : off + cb]
-            res = dfa_scan_fast(
-                self.tables, self._classes(raw),
-                num_blocks=self._pick_blocks(len(raw)), start=cur,
-                max_iters=self.config.max_iters, emit="full",
-            )
+            tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
+            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                max_iters=self.config.max_iters, emit="full")
             if not bool(res.domain_ok):
                 raise RuntimeError(
                     "device DFA pass produced out-of-domain state ids: "
@@ -722,9 +752,10 @@ class DfaMatcher:
                 )
             if not res.converged:
                 res = self._exact_fallback(raw, cur)
-            pos = torch.nonzero(res.match_mask).reshape(-1)
-            st_out.append(torch.index_select(res.states, 0, pos).cpu().numpy()
-                          .astype(np.int32, copy=False))
+                lead = 0
+            pos = torch.nonzero(res.match_mask[lead:]).reshape(-1)
+            st_out.append(torch.index_select(res.states[lead:], 0, pos)
+                          .cpu().numpy().astype(np.int32, copy=False))
             pos_out.append(pos.cpu().numpy() + off)
             cur = int(res.final_state)
         self._last_final = cur
@@ -732,18 +763,19 @@ class DfaMatcher:
 
     def _scan_batch_counts(self, arr: np.ndarray):
         """Chunked batch scan of (N, L) equal-length streams via
-        ``dfa_scan_fast_multi`` (per-stream histograms on the device).
-        Returns (counts (N, S), iterations, converged, final states (N,))."""
+        ``dfa_scan_fast_multi`` (per-stream histograms on the device), each
+        row's chunk padded as ``_chunk_ids`` pads it. Returns (counts
+        (N, S), iterations, converged, final states (N,))."""
         n, l = arr.shape
-        classes = self._classes(arr)
+        data = self._upload(arr)
         counts = np.zeros((n, self.num_states), dtype=np.int64)
         cur = np.full(n, self.start, dtype=np.int32)
         iters, converged = 0, True
         cb = self.config.chunk_bytes
         for off in range(0, l, cb):
-            chunk = classes[:, off : off + cb]
+            tables, ids, nb, lead = self._chunk_ids(data[:, off : off + cb])
             res = dfa_scan_fast_multi(
-                self.tables, chunk, num_blocks=self._pick_blocks(chunk.shape[1]),
+                tables, ids, num_blocks=nb,
                 starts=torch.as_tensor(cur, device=self.device),
                 max_iters=self.config.max_iters, emit="counts",
             )
@@ -755,7 +787,10 @@ class DfaMatcher:
                     counts[i] += r.counts.cpu().numpy()
                     cur[i] = r.final_state
             else:
-                counts += res.counts.cpu().numpy()
+                c = res.counts.cpu().numpy().astype(np.int64)
+                if lead:  # each row's pad steps visited its entry state
+                    c[np.arange(n), cur] -= lead * self._host_tables()[2][cur]
+                counts += c
                 cur = res.final_states.cpu().numpy().astype(np.int32)
             iters = max(iters, res.iterations)
         return counts, iters, converged, cur
@@ -771,8 +806,7 @@ class DfaMatcher:
         replay from the start predicts. The overcount is exactly
         ``pad_steps`` visits of the entry state, subtracted afterwards.
         Returns (counts (N, S) int64, iters, converged, finals (N,))."""
-        if self._stall_tables is None:
-            self._stall_tables = stall_extend(self.tables)
+        stall_tables = self._stalled_tables()
         stall_id = self.tables.num_classes
         # the stall id is C, which needs more than a byte when C = 256
         dtype = torch.uint8 if stall_id < 256 else torch.int32
@@ -820,7 +854,7 @@ class DfaMatcher:
                 real_pos,
                 torch.index_select(self._class_lut, 0, raw.int()).to(dtype))
             res = dfa_scan_fast_multi(
-                self._stall_tables, chunk, num_blocks=nb,
+                stall_tables, chunk, num_blocks=nb,
                 starts=torch.as_tensor(cur, device=self.device),
                 max_iters=self.config.max_iters, emit="counts",
             )
@@ -847,26 +881,33 @@ class DfaMatcher:
         """Counts-only chunked scan (the histogram stays on the device).
         Returns (counts (S,), iterations, converged) and sets
         ``self._last_final``."""
-        start = self.start if start is None else start
+        cur = self.start if start is None else start
         counts = np.zeros(self.num_states, dtype=np.int64)
         iters, converged = 0, True
-        cur = start
         cb = self.config.chunk_bytes
         for off in range(0, len(stream), cb):
-            raw = stream[off : off + cb]
-            res = dfa_scan_fast(
-                self.tables, self._classes(raw),
-                num_blocks=self._pick_blocks(len(raw)), start=cur,
-                max_iters=self.config.max_iters, emit="counts",
-            )
-            if not res.converged:
-                converged = False
-                res = self._exact_fallback(raw, cur)
-            counts += res.counts.cpu().numpy()
-            cur = int(res.final_state)
-            iters = max(iters, res.iterations)
+            c, cur, it, conv = self._counts_chunk(stream[off : off + cb], cur)
+            counts += c
+            iters = max(iters, it)
+            converged &= conv
         self._last_final = cur
         return counts, iters, converged
+
+    def _counts_chunk(self, raw: np.ndarray, cur: int):
+        """One chunk's (counts (S,) int64, final state, iterations,
+        converged) from state ``cur`` on the k=1 counts engine, or on the
+        exact path when it does not converge."""
+        tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
+        res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                            max_iters=self.config.max_iters, emit="counts")
+        if not res.converged:
+            fb = self._exact_fallback(raw, cur)
+            return (fb.counts.cpu().numpy().astype(np.int64),
+                    int(fb.final_state), fb.iterations, False)
+        counts = res.counts.cpu().numpy().astype(np.int64)
+        if lead:  # the pad steps visited the entry state
+            counts[cur] -= lead * self._host_tables()[2][cur]
+        return counts, int(res.final_state), res.iterations, True
 
     def _exact_fallback(self, chunk_bytes: np.ndarray, start) -> _FallbackResult:
         """Exact path for automata the fast engine does not settle, on the

@@ -65,9 +65,8 @@ def dfa_scan_serial(tables: DfaTables, stream, start: int = 0) -> DfaScanResult:
     """Strictly serial scan: a host loop with one table lookup per byte.
 
     It loops once per byte, so it is used only on short tails: the fewer
-    than k bytes after the last whole k-gram step of ``DfaMatcher.count``,
-    and the fewer than 1024 bytes after the last whole block of an
-    exact-fallback chunk. Results lie on the tables' device."""
+    than 1024 bytes after the last whole block of an exact-fallback chunk.
+    Results lie on the tables' device."""
     data = _as_numpy_bytes(stream)
     table = tables.table.cpu().numpy()
     class_of = tables.class_of.cpu().numpy()

@@ -373,16 +373,23 @@ def dfa_block_fns_plain(table, classes):
     return states
 
 
+def _gather(flat, idx):
+    """``flat[idx]`` for an index of any shape. ``index_select`` and not
+    ``torch.take``: on a CPU build take spreads a few thousand lookups over
+    every thread and costs milliseconds a call where the cores are shared."""
+    return torch.index_select(flat, 0, idx.reshape(-1)).reshape(idx.shape)
+
+
 def _step(flat, c_dim: int, s_dim: int, state, cls):
     """One step of every lane: T[cls, state], or 0 out of range."""
     ok = (state >= 0) & (state < s_dim) & (cls >= 0) & (cls < c_dim)
     idx = torch.where(ok, cls * s_dim + state, 0)
-    return torch.where(ok, torch.take(flat, idx), 0)
+    return torch.where(ok, _gather(flat, idx), 0)
 
 
 def _accepts(accept, s_dim: int, state):
     ok = (state >= 0) & (state < s_dim)
-    return ok & torch.take(accept, torch.where(ok, state, 0).long())
+    return ok & _gather(accept, torch.where(ok, state, 0).long())
 
 
 def dfa_chain_plain(table, accept, cls_seq, entries, mode: str = "finals"):

@@ -12,17 +12,15 @@ FILES = ["test_snort.py", "test_snort_scale.py", "test_l7.py",
          "test_l7_scale.py", "test_lazy_dfa.py", "test_coe_csr.py",
          "test_oracle.py", "test_export_csr.py"]
 
-_BLOCK_RULE = ("a wall-clock limit met by JAX; the port's plain K2 walks an "
-               "odd-length payload on one or two chain lanes (ROADMAP.md "
-               "section 2 item 1, the block-count rule)")
+_HOST_VERIFY = ("a 2.5 s wall-clock limit: the host verify of the 320,006-byte "
+                "payload, the same Python walk as JAX's, takes 1.5-1.8 s alone "
+                "and 1.8-2.3 s beside six xdist workers (JAX: 1.3-2.1 s); the "
+                "device scan's plain path takes 0.04 s")
 
 #: {test id: (class, reason)}: the classes are torch_jax_alias.CLASSES
 EXPECTED = {
-    "test_snort.py::test_large_stream_payload": ("cpu-speed", _BLOCK_RULE),
-    "test_snort.py::test_verify_linear_without_relative_modifiers": (
-        "cpu-speed", _BLOCK_RULE),
     "test_snort.py::test_verify_linear_with_window_backtracking": (
-        "cpu-speed", _BLOCK_RULE),
+        "cpu-speed", _HOST_VERIFY),
     "test_lazy_dfa.py::test_api_scan_batch_conformance": (
         "fixture", "F1: opens reference/Block_Mem/CSR_BlockMem.coe without "
                    "the reference_available guard; fails under JAX too"),

@@ -230,9 +230,10 @@ GROUPS = {
 }
 CASES = [(name, i) for name, (_, payloads) in GROUPS.items()
          for i in range(len(payloads))]
-#: payloads above 64 KiB scan in 8 KiB chunks on both sides: the plain
-#: versions walk the chain steps in Python, and a default 64 MiB chunk of
-#: a length with few factors of two runs on a few lanes (shrink_blocks)
+#: payloads above 64 KiB scan in 8 KiB chunks on both sides: in a default
+#: 64 MiB chunk the JAX package runs a length with few factors of two on a
+#: few lanes (its largest power-of-two divisor), each a long serial loop on
+#: the CPU; the port pads such a chunk to its full lane count
 LARGE = EngineConfig(chunk_bytes=1 << 13)
 
 
