@@ -133,11 +133,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 ``--tp-ranks N`` runs only phase 1 and phase 8's multi-rank scans (rank_program)
 on N NCCL ranks, a card each, against world size 1 (on a machine with N
 cards).
-``--profile`` adds, after phase 6, one torch.profiler run of each API call
-that uses the card (device time in copies and in kernels, and the idle share
-of the call's wall time) and the host-to-device copy of 64 MiB from pageable
-and from pinned memory. The script imports torch, numpy and the port, and nothing
-of JAX or of the JAX package.
+The script imports torch, numpy and the port, and nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -965,8 +962,7 @@ def stall_choice_256(dev) -> None:
 
 
 def phase_main_path(dev):
-    """The port's API at full size. Returns the kernel launch counts, the
-    calls, as (label, zero-argument function, bytes) for the profile, and the
+    """The port's API at full size. Returns the kernel launch counts and the
     keyword traffic of the Aho-Corasick matcher."""
     from regex_fpga_tpu_torch import api
     from regex_fpga_tpu_torch.models import CompiledDfa, build_aho_corasick
@@ -1137,9 +1133,7 @@ def phase_main_path(dev):
     check(pm.count(pdata) == int(want.sum()), "parity: exact fallback count")
     print(f"main: parity automaton: converged=False, exact fallback total "
           f"{rep.total} equals the host walk", flush=True)
-    return launches, [(label, (lambda m=card[who], me=method, a=args:
-                               run(m, me, a)), nbytes)
-                      for label, who, method, args, nbytes in calls], ac_text
+    return launches, ac_text
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1147,7 +1141,7 @@ def phase_main_path(dev):
 
 def phase_nfa_path(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
     """compile_ruleset through all three strategies at full size. Returns
-    the kernel launch counts and the calls for the profile."""
+    the kernel launch counts."""
     from regex_fpga_tpu_torch import api
     from regex_fpga_tpu_torch.models import nfa_scan
 
@@ -1213,9 +1207,7 @@ def phase_nfa_path(dev, snort_aut, snort_bytes, l7_aut, l7_bytes):
           "l7 64 KiB: oracle")
     print(f"main: the 16 KiB Snort and 64 KiB l7 prefixes equal the Python "
           f"oracle ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return launches, [(label, (lambda mm=m[who], d=data: mm.scan(d)), nbytes)
-                      for label, who, data, nbytes in calls
-                      if m[who].strategy != "lazy"]
+    return launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1270,7 +1262,7 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
     sizes a user scans (64 MiB calls at the JAX defaults): regex spans,
     literal sets, rule sets, the host matchers and re_compat, each timed as
     the median of REPEATS runs after a warm-up and held to a reference.
-    Returns the kernel launch counts and the device calls for the profile."""
+    Returns the kernel launch counts."""
     import re
 
     from regex_fpga_tpu_torch import api, native, re_compat
@@ -1359,7 +1351,7 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
                     len(prefix)),
     }
     reset_launches()
-    got, device_calls = {}, []
+    got = {}
     for key, (label, fn, nbytes) in calls.items():
         before = launch_counters()
         got[key] = fn()  # warm-up: reversed and anchored automata, lazy DFAs
@@ -1370,8 +1362,6 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
         print(f"spans: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
               f"{REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max {max(ms):.2f}), "
               f"launches {json.dumps(used)}", flush=True)
-        if used:
-            device_calls.append((label, fn, nbytes))
     launches = launch_counters()
     print(f"spans: launches {json.dumps(launches)}", flush=True)
     for name in SPAN_PATH:
@@ -1475,7 +1465,7 @@ def phase_spans(dev, snort_bytes, l7_bytes, ac_text):
           f"re_compat.count ({got['count']}) equals the native host walk and "
           f"re_compat.findall re.findall ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    return launches, device_calls
+    return launches
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1527,7 +1517,8 @@ def phase_ids(dev, snort_bytes, l7_bytes, kernel_times):
     and the CLI as subprocesses. Each call is timed as the median of
     IDS_REPEATS runs after a warm-up and held to a reference. Adds K2's time
     at the Snort prefilter shape to ``kernel_times``. Returns the kernel
-    launch counts and the device calls for the profile."""
+    launch counts, the IDS matchers, the payloads and the Snort call's
+    median and report."""
     from regex_fpga_tpu_torch import api, native
     from regex_fpga_tpu_torch.models import (gen_community_rules,
                                              gen_l7_patterns, gen_traffic,
@@ -1602,7 +1593,7 @@ def phase_ids(dev, snort_bytes, l7_bytes, kernel_times):
                    lambda: l7["prefiltered"].scan(pre_flows), 8 * MIB // 16),
     }
     reset_launches()
-    got, device_calls, medians = {}, [], {}
+    got, medians = {}, {}
     for key, (label, fn, nbytes) in calls.items():
         before = launch_counters()
         got[key] = fn()
@@ -1613,7 +1604,6 @@ def phase_ids(dev, snort_bytes, l7_bytes, kernel_times):
         print(f"ids: {label}: {nbytes / med / 1e6:.3f} GB/s (median of "
               f"{IDS_REPEATS}: {med:.2f} ms; min {min(ms):.2f}, max "
               f"{max(ms):.2f}), launches {json.dumps(used)}", flush=True)
-        device_calls.append((label, fn, nbytes))
     launches = launch_counters()
     print(f"ids: launches {json.dumps(launches)}", flush=True)
     for name in IDS_PATH:
@@ -1694,7 +1684,7 @@ def phase_ids(dev, snort_bytes, l7_bytes, kernel_times):
 
     check_cli(dev, work, ids, rules_text, payloads, snort_bytes, l7_bytes)
     shutil.rmtree(work, ignore_errors=True)
-    return launches, device_calls, ids, payloads, (medians["snort"], rep)
+    return launches, ids, payloads, (medians["snort"], rep)
 
 
 def check_cli(dev, work, ids, rules_text, payloads, snort_bytes, l7_bytes):
@@ -2505,9 +2495,6 @@ def fit_priors(rows, kernel_times) -> dict:
     return fit
 
 
-# ------------------------------------------------------------ --profile
-
-
 # ---------------------------------------------------------------- phase 8
 
 PARALLEL_PATH = ("dfa_chain", "dfa_chain_counts", "kgram_chain_bytes",
@@ -3113,66 +3100,9 @@ def phase_parallel(dev, snort_ld, snort_aut, snort_bytes, l7_aut, l7_bytes,
     return launches
 
 
-def phase_profile(dev, calls, out_dir):
-    """One torch.profiler run of each API call after a warm-up: device time
-    in copies (memcpy/memset) and in kernels, and the share of the call's
-    wall time in which the device did neither. Also the host-to-device copy
-    of 64 MiB from pageable and from pinned memory."""
-    from torch.profiler import ProfilerActivity, profile
-
-    host = np.random.default_rng(SEED + 2).integers(0, 256, size=64 * MIB,
-                                                     dtype=np.uint8)
-    pinned = torch.from_numpy(host.copy()).pin_memory()
-    copies = {
-        "h2d pageable 64 MiB": lambda: torch.from_numpy(host).to(dev),
-        "h2d pinned 64 MiB": lambda: pinned.to(dev, non_blocking=True),
-    }
-    rows = []
-    for label, fn in copies.items():
-        fn()
-        ms = wall_ms(fn, REPEATS)
-        rows.append({"copy": label, "median_ms": float(np.median(ms)),
-                     "min_ms": min(ms), "max_ms": max(ms)})
-        print(f"profile: {json.dumps(rows[-1])}", flush=True)
-    for label, fn, nbytes in calls:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        copy_ms = kernel_ms = 0.0
-        top = {}
-        for e in prof.key_averages():
-            if e.device_type.name != "CUDA":
-                continue
-            ms = e.self_device_time_total / 1e3
-            if e.key.startswith(("Memcpy", "Memset")):
-                copy_ms += ms
-            else:
-                kernel_ms += ms
-                top[e.key[:60]] = top.get(e.key[:60], 0.0) + ms
-        rows.append({
-            "call": label, "wall_ms": wall, "copy_ms": copy_ms,
-            "kernel_ms": kernel_ms,
-            "idle_share": 1 - (copy_ms + kernel_ms) / wall,
-            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:4]),
-        })
-        check(kernel_ms > 0, f"{label}: the profile shows device kernels")
-        print(f"profile: {json.dumps(rows[-1])}", flush=True)
-    if out_dir:
-        with open(os.path.join(out_dir, "profile.json"), "w") as f:
-            json.dump(rows, f, indent=1)
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory for nvcc's report and results")
-    parser.add_argument("--profile", action="store_true",
-                        help="also profile each API call (device copy, kernel "
-                             "and idle time)")
     parser.add_argument("--tp-ranks", type=int, metavar="N",
                         help="only the multi-rank scans on N NCCL ranks, a card "
                              "each, against world size 1 (needs N cards)")
@@ -3226,14 +3156,14 @@ def main(argv=None) -> int:
     done("phase 2 (NFA kernels)")
     surface_launches = phase_surface(dev, ac_tables, l7_aut, l7_bytes)
     done("phase 2 (package surface)")
-    dfa_launches, calls, ac_text = phase_main_path(dev)
+    dfa_launches, ac_text = phase_main_path(dev)
     done("phase 3 (DFA main path)")
-    nfa_launches, nfa_calls = phase_nfa_path(dev, snort_aut, snort_bytes,
-                                             l7_aut, l7_bytes)
+    nfa_launches = phase_nfa_path(dev, snort_aut, snort_bytes, l7_aut,
+                                  l7_bytes)
     done("phase 4 (NFA main path)")
-    span_launches, span_calls = phase_spans(dev, snort_bytes, l7_bytes, ac_text)
+    span_launches = phase_spans(dev, snort_bytes, l7_bytes, ac_text)
     done("phase 5 (spans)")
-    ids_launches, ids_calls, ids, payloads, snort_auto = phase_ids(
+    ids_launches, ids, payloads, snort_auto = phase_ids(
         dev, snort_bytes, l7_bytes, kernel_times)
     done("phase 6 (IDS front door)")
     router_launches = phase_router(dev, ids, payloads, snort_auto, ac_text,
@@ -3245,8 +3175,6 @@ def main(argv=None) -> int:
     launches = {k: surface_launches[k] + dfa_launches[k] + nfa_launches[k]
                 + span_launches[k] + ids_launches[k] + router_launches[k]
                 + parallel_launches[k] for k in KERNELS}
-    if args.profile:
-        phase_profile(dev, calls + nfa_calls + span_calls + ids_calls, args.out)
 
     for name in KERNELS:
         check(launches[name] > 0, f"{name} launched on the main path")

@@ -121,6 +121,7 @@ from .ops.tables import (
 )
 from .utils.config import EngineConfig, shrink_blocks
 from .utils.metrics import RunMetrics, Timer
+from .utils.profiling import trace
 
 __all__ = [
     "DEFAULT_CONFIG",
@@ -369,7 +370,8 @@ class DfaMatcher:
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array as a tensor on the matcher's device."""
-        return host_to_device(arr, self.device)
+        with trace("rf.device.upload"):
+            return host_to_device(arr, self.device)
 
     def _lanes(self, n: int) -> int:
         """The chain lanes of a chunk of ``n`` bytes (or k-gram steps): the
@@ -592,52 +594,58 @@ class DfaMatcher:
         stall class) from the k-gram carry state. Where the k-gram engine
         is off (more than ``KGRAM_MAX_STATES`` states), the engine router
         may send the count to the host walker."""
-        streams = _as_streams(data)
-        if streams and self._kgram() is None and self._host_backend(
-                len(streams), sum(len(s_) for s_ in streams)):
-            counts, finals = self._host_scan_counts(streams)
-            return int(counts.sum()) + len(self._final_matches(streams, finals))
-        total = 0
-        for stream in streams:
-            if len(stream) == 0:
-                continue
-            kgc = self._kgram()
-            if kgc is None:
-                total += int(self.scan([stream]).counts.sum())
-                continue
-            kg, ta, maps = kgc
-            cb = self.config.chunk_bytes
-            cur = self.start
-            stream_total = 0
-            diverged = False
-            for off in range(0, len(stream), cb):
-                chunk = stream[off : off + cb]
-                steps = len(chunk) // kg.k
-                nb = self._lanes(max(steps, 1))
-                main_len = (steps // nb) * nb * kg.k
-                if main_len:
-                    # the raw text goes to the k-gram kernel, which maps
-                    # it to classes itself
-                    res = dfa_scan_kgram(
-                        ta, self._upload(chunk[:main_len]), num_blocks=nb,
-                        start=cur, max_iters=self.config.max_iters, maps=maps,
-                    )
-                    if not res.converged:
-                        diverged = True
-                        break
-                    stream_total += int(res.total)
-                    cur = int(res.final_state)
-                if main_len < len(chunk):
-                    c, cur, _, _ = self._counts_chunk(chunk[main_len:], cur)
-                    stream_total += int(c.sum())
-            if diverged:  # non-synchronizing automaton: exact fallback over
-                # the whole stream (partial totals discarded)
-                total += int(self.scan([stream]).counts.sum())
-                continue
-            if self.include_final_match and bool(self._accept_eof[cur]):
-                stream_total += 1
-            total += stream_total
-        return total
+        with trace("rf.api.count"):
+            streams = _as_streams(data)
+            if streams and self._kgram() is None and self._host_backend(
+                    len(streams), sum(len(s_) for s_ in streams)):
+                counts, finals = self._host_scan_counts(streams)
+                return (int(counts.sum())
+                        + len(self._final_matches(streams, finals)))
+            total = 0
+            for stream in streams:
+                if len(stream) == 0:
+                    continue
+                kgc = self._kgram()
+                if kgc is None:
+                    total += int(self.scan([stream]).counts.sum())
+                    continue
+                kg, ta, maps = kgc
+                cb = self.config.chunk_bytes
+                cur = self.start
+                stream_total = 0
+                diverged = False
+                for off in range(0, len(stream), cb):
+                    chunk = stream[off : off + cb]
+                    steps = len(chunk) // kg.k
+                    nb = self._lanes(max(steps, 1))
+                    main_len = (steps // nb) * nb * kg.k
+                    if main_len:
+                        # the raw text goes to the k-gram kernel, which maps
+                        # it to classes itself
+                        with trace("rf.engine.kgram"):
+                            res = dfa_scan_kgram(
+                                ta, self._upload(chunk[:main_len]),
+                                num_blocks=nb, start=cur,
+                                max_iters=self.config.max_iters, maps=maps,
+                            )
+                            if not res.converged:
+                                diverged = True
+                                break
+                            with trace("rf.device.readback"):
+                                stream_total += int(res.total)
+                            cur = int(res.final_state)
+                    if main_len < len(chunk):
+                        c, cur, _, _ = self._counts_chunk(chunk[main_len:],
+                                                          cur)
+                        stream_total += int(c.sum())
+                if diverged:  # non-synchronizing automaton: exact fallback
+                    # over the whole stream (partial totals discarded)
+                    total += int(self.scan([stream]).counts.sum())
+                    continue
+                if self.include_final_match and bool(self._accept_eof[cur]):
+                    stream_total += 1
+                total += stream_total
+            return total
 
     # ------------------------------------------------------ chunked engines
 
@@ -654,25 +662,27 @@ class DfaMatcher:
         cur = self.start
         for off in range(0, len(stream), cb):
             raw = stream[off : off + cb]
-            tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
-            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                max_iters=self.config.max_iters)
-            if not bool(res.domain_ok):
-                raise RuntimeError(
-                    "device DFA pass produced out-of-domain state ids: "
-                    "corrupt table"
-                )
-            if not res.converged:
-                converged = False
-                res = self._exact_fallback(raw, cur)
-                counts += res.counts
-                chunk_mask = res.match_mask
-            else:
-                chunk_mask = res.match_mask[lead:]
-                counts += torch.bincount(res.states[lead:][chunk_mask].long(),
-                                         minlength=self.num_states)
-            mask[off : off + len(raw)] = chunk_mask
-            cur = int(res.final_state)
+            with trace("rf.engine.k1"):
+                tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
+                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                    max_iters=self.config.max_iters)
+                if not bool(res.domain_ok):
+                    raise RuntimeError(
+                        "device DFA pass produced out-of-domain state ids: "
+                        "corrupt table"
+                    )
+                if not res.converged:
+                    converged = False
+                    res = self._exact_fallback(raw, cur)
+                    counts += res.counts
+                    chunk_mask = res.match_mask
+                else:
+                    chunk_mask = res.match_mask[lead:]
+                    counts += torch.bincount(
+                        res.states[lead:][chunk_mask].long(),
+                        minlength=self.num_states)
+                mask[off : off + len(raw)] = chunk_mask
+                cur = int(res.final_state)
             iters = max(iters, res.iterations)
         self._last_final = cur
         return counts, mask, iters, converged
@@ -683,21 +693,23 @@ class DfaMatcher:
         via the exact path when the scan does not converge; the mask stays
         on the device. ``reverse`` scans the chunk's bytes back to front:
         the chunk is uploaded as it lies and flipped on the device."""
-        data = self._upload(raw_chunk)
-        if reverse:
-            data = torch.flip(data, (0,))
-        tables, ids, nb, lead = self._chunk_ids(data)
-        res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                            max_iters=self.config.max_iters, emit="mask")
-        if not bool(res.domain_ok):
-            raise RuntimeError(
-                "device DFA pass produced out-of-domain state ids: corrupt table"
-            )
-        if not res.converged:
-            res = self._exact_fallback(raw_chunk[::-1] if reverse else raw_chunk,
-                                       cur)
-            return res.match_mask, int(res.final_state)
-        return res.match_mask[lead:], int(res.final_state)
+        with trace("rf.engine.k1"):
+            data = self._upload(raw_chunk)
+            if reverse:
+                data = torch.flip(data, (0,))
+            tables, ids, nb, lead = self._chunk_ids(data)
+            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                max_iters=self.config.max_iters, emit="mask")
+            if not bool(res.domain_ok):
+                raise RuntimeError(
+                    "device DFA pass produced out-of-domain state ids: "
+                    "corrupt table"
+                )
+            if not res.converged:
+                res = self._exact_fallback(
+                    raw_chunk[::-1] if reverse else raw_chunk, cur)
+                return res.match_mask, int(res.final_state)
+            return res.match_mask[lead:], int(res.final_state)
 
     def _scan_match_positions(self, stream: np.ndarray,
                               reverse: bool = False) -> np.ndarray:
@@ -718,12 +730,14 @@ class DfaMatcher:
                      else stream[off : off + cb])
             mask, cur_next = self._mask_chunk_device(chunk, cur, reverse)
             cap = max(1024, len(chunk) // 4)
-            pos_dev, count_dev = mask_positions(mask, cap)
-            count = int(count_dev)
-            if count > cap:  # dense chunk: compact the mask itself
-                pos = torch.nonzero(mask).reshape(-1).cpu().numpy()
-            else:
-                pos = pos_dev[:count].cpu().numpy()
+            with trace("rf.engine.positions"):
+                pos_dev, count_dev = mask_positions(mask, cap)
+                count = int(count_dev)
+            with trace("rf.device.readback"):
+                if count > cap:  # dense chunk: compact the mask itself
+                    pos = torch.nonzero(mask).reshape(-1).cpu().numpy()
+                else:
+                    pos = pos_dev[:count].cpu().numpy()
             out.append(pos.astype(np.int64) + off)
             cur = cur_next
         self._last_final = cur
@@ -742,22 +756,24 @@ class DfaMatcher:
         cb = self.config.chunk_bytes
         for off in range(0, len(stream), cb):
             raw = stream[off : off + cb]
-            tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
-            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                max_iters=self.config.max_iters, emit="full")
-            if not bool(res.domain_ok):
-                raise RuntimeError(
-                    "device DFA pass produced out-of-domain state ids: "
-                    "corrupt table"
-                )
-            if not res.converged:
-                res = self._exact_fallback(raw, cur)
-                lead = 0
-            pos = torch.nonzero(res.match_mask[lead:]).reshape(-1)
-            st_out.append(torch.index_select(res.states[lead:], 0, pos)
-                          .cpu().numpy().astype(np.int32, copy=False))
-            pos_out.append(pos.cpu().numpy() + off)
-            cur = int(res.final_state)
+            with trace("rf.engine.k1"):
+                tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
+                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                    max_iters=self.config.max_iters,
+                                    emit="full")
+                if not bool(res.domain_ok):
+                    raise RuntimeError(
+                        "device DFA pass produced out-of-domain state ids: "
+                        "corrupt table"
+                    )
+                if not res.converged:
+                    res = self._exact_fallback(raw, cur)
+                    lead = 0
+                pos = torch.nonzero(res.match_mask[lead:]).reshape(-1)
+                st_out.append(torch.index_select(res.states[lead:], 0, pos)
+                              .cpu().numpy().astype(np.int32, copy=False))
+                pos_out.append(pos.cpu().numpy() + off)
+                cur = int(res.final_state)
         self._last_final = cur
         return np.concatenate(pos_out), np.concatenate(st_out)
 
@@ -897,45 +913,51 @@ class DfaMatcher:
         """One chunk's (counts (S,) int64, final state, iterations,
         converged) from state ``cur`` on the k=1 counts engine, or on the
         exact path when it does not converge."""
-        tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
-        res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                            max_iters=self.config.max_iters, emit="counts")
-        if not res.converged:
-            fb = self._exact_fallback(raw, cur)
-            return (fb.counts.cpu().numpy().astype(np.int64),
-                    int(fb.final_state), fb.iterations, False)
-        counts = res.counts.cpu().numpy().astype(np.int64)
-        if lead:  # the pad steps visited the entry state
-            counts[cur] -= lead * self._host_tables()[2][cur]
-        return counts, int(res.final_state), res.iterations, True
+        with trace("rf.engine.k1"):
+            tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
+            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                max_iters=self.config.max_iters, emit="counts")
+            if not res.converged:
+                fb = self._exact_fallback(raw, cur)
+                with trace("rf.device.readback"):
+                    counts = fb.counts.cpu().numpy().astype(np.int64)
+                return counts, int(fb.final_state), fb.iterations, False
+            with trace("rf.device.readback"):
+                counts = res.counts.cpu().numpy().astype(np.int64)
+            if lead:  # the pad steps visited the entry state
+                counts[cur] -= lead * self._host_tables()[2][cur]
+            return counts, int(res.final_state), res.iterations, True
 
     def _exact_fallback(self, chunk_bytes: np.ndarray, start) -> _FallbackResult:
         """Exact path for automata the fast engine does not settle, on the
         matcher's device: the blocked composition scan over the chunk's
         whole 1024-byte blocks, then the serial scan over the tail of fewer
         than 1024 bytes."""
-        block = 1024
-        main = len(chunk_bytes) - len(chunk_bytes) % block
-        counts = torch.zeros(self.num_states, dtype=torch.int64,
-                             device=self.device)
-        masks = [torch.zeros(0, dtype=torch.bool, device=self.device)]
-        states = [torch.zeros(0, dtype=torch.int32, device=self.device)]
-        cur = int(start)
-        if main:
-            res = dfa_scan_blocked(self.tables, self._upload(chunk_bytes[:main]),
-                                   block_size=block, start=cur)
-            counts += res.counts
-            masks.append(res.match_mask)
-            states.append(res.states)
-            cur = int(res.final_state)
-        if main < len(chunk_bytes):
-            res = dfa_scan_serial(self.tables, chunk_bytes[main:], start=cur)
-            counts += res.counts
-            masks.append(res.match_mask)
-            states.append(res.states)
-            cur = int(res.final_state)
-        return _FallbackResult(counts=counts, match_mask=torch.cat(masks),
-                               states=torch.cat(states), final_state=cur)
+        with trace("rf.engine.fallback"):
+            block = 1024
+            main = len(chunk_bytes) - len(chunk_bytes) % block
+            counts = torch.zeros(self.num_states, dtype=torch.int64,
+                                 device=self.device)
+            masks = [torch.zeros(0, dtype=torch.bool, device=self.device)]
+            states = [torch.zeros(0, dtype=torch.int32, device=self.device)]
+            cur = int(start)
+            if main:
+                res = dfa_scan_blocked(self.tables,
+                                       self._upload(chunk_bytes[:main]),
+                                       block_size=block, start=cur)
+                counts += res.counts
+                masks.append(res.match_mask)
+                states.append(res.states)
+                cur = int(res.final_state)
+            if main < len(chunk_bytes):
+                res = dfa_scan_serial(self.tables, chunk_bytes[main:],
+                                      start=cur)
+                counts += res.counts
+                masks.append(res.match_mask)
+                states.append(res.states)
+                cur = int(res.final_state)
+            return _FallbackResult(counts=counts, match_mask=torch.cat(masks),
+                                   states=torch.cat(states), final_state=cur)
 
     # ------------------------------------------------------ span extraction
 
@@ -1304,21 +1326,24 @@ class TokenizerMatcher(DfaMatcher):
         """Token-start byte offsets for ``text`` (maximal munch; the
         semantics are those of
         ``regex_fpga_tpu.models.tokenizer_dfa.boundaries_from_flags``)."""
-        stream = _as_streams(text)[0]
-        n = len(stream)
-        if n == 0:
-            return np.zeros(0, dtype=np.int64)
-        # an accept bit at byte i marks a token start at byte i - 1, byte 0
-        # always starts one, and an accepting final state marks byte n - 1.
-        # The compacted positions are ascending and distinct, so the offsets
-        # follow without rebuilding the mask or sorting (boundaries_from_flags
-        # does both, in Python lists: seconds at 16 MiB).
-        pos = self._scan_match_positions(stream)
-        starts = pos[np.searchsorted(pos, 1):] - 1
-        head = np.zeros(0 if len(starts) and starts[0] == 0 else 1, np.int64)
-        final = bool(self._accept_eof[self._last_final]) and n > 1
-        tail = np.full(1 if final else 0, n - 1, np.int64)
-        return np.concatenate([head, starts, tail])
+        with trace("rf.api.presplit"):
+            stream = _as_streams(text)[0]
+            n = len(stream)
+            if n == 0:
+                return np.zeros(0, dtype=np.int64)
+            # an accept bit at byte i marks a token start at byte i - 1, byte 0
+            # always starts one, and an accepting final state marks byte n - 1.
+            # The compacted positions are ascending and distinct, so the
+            # offsets follow without rebuilding the mask or sorting
+            # (boundaries_from_flags does both, in Python lists: seconds at
+            # 16 MiB).
+            pos = self._scan_match_positions(stream)
+            starts = pos[np.searchsorted(pos, 1):] - 1
+            head = np.zeros(0 if len(starts) and starts[0] == 0 else 1,
+                            np.int64)
+            final = bool(self._accept_eof[self._last_final]) and n > 1
+            tail = np.full(1 if final else 0, n - 1, np.int64)
+            return np.concatenate([head, starts, tail])
 
     def pieces(self, text: bytes) -> list[bytes]:
         starts = self.presplit(text).tolist()

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import trace
 from .hopper_dfa import dfa_chain, dfa_chain_counts
 from .tables import DfaTables
 
@@ -137,18 +138,23 @@ def _run_pass(pass_fn, pass_finals, entries0, shift, max_iters: int):
     the guesses verify, its results stand. Otherwise iterate the Jacobi
     fixpoint and run the output pass once more from its entries. Returns
     (pass outputs, converged, iterations), counted as the JAX engine does:
-    1 on the speculation path."""
-    out0 = pass_fn(entries0)
-    entries = shift(out0[0])
-    if bool((entries == entries0).all()):
+    1 on the speculation path. Each pass, with its convergence read, is an
+    ``rf.engine.pass`` span."""
+    with trace("rf.engine.pass"):
+        out0 = pass_fn(entries0)
+        entries = shift(out0[0])
+        guessed = bool((entries == entries0).all())
+    if guessed:
         return out0, True, 1
     done, it = False, 1
     while not done and it < max_iters:
-        new_entries = shift(pass_finals(entries))
-        done = bool((new_entries == entries).all())
+        with trace("rf.engine.pass"):
+            new_entries = shift(pass_finals(entries))
+            done = bool((new_entries == entries).all())
         entries = new_entries
         it += 1
-    return pass_fn(entries), done, it
+    with trace("rf.engine.pass"):
+        return pass_fn(entries), done, it
 
 
 def dfa_scan_fast(

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import trace
 from .hopper_kgram import (
     KgramMaps,
     PackedTa,
@@ -296,9 +297,10 @@ def dfa_scan_kgram(
     finals = totals = torch.zeros(num_blocks, dtype=torch.int32, device=dev)
     converged, it = False, 0
     while not converged and it < max_iters:
-        finals, totals = kgram_pass_full(ta, cls_seq, entries, maps)
-        new_entries = torch.cat([start_t, finals[:-1]])
-        converged = bool((new_entries == entries).all())
+        with trace("rf.engine.pass"):  # a pass and its convergence read
+            finals, totals = kgram_pass_full(ta, cls_seq, entries, maps)
+            new_entries = torch.cat([start_t, finals[:-1]])
+            converged = bool((new_entries == entries).all())
         entries = new_entries
         it += 1
     return KgramScanResult(

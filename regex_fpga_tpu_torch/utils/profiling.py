@@ -37,20 +37,22 @@ def profile_to(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-@contextlib.contextmanager
+#: what ``trace`` hands back while no profiler records: shared, reentrant
+_OFF = contextlib.nullcontext()
+
+
 def trace(name: str):
-    """A named region in the profiler's timeline
-    (``torch.profiler.record_function``) and, where a CUDA card is visible,
-    an NVTX range of the same name."""
-    cuda = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if cuda:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if cuda:
-                torch.cuda.nvtx.range_pop()
+    """A named span in the profiler's timeline: a
+    ``torch.profiler.record_function`` while a profiler session records
+    (its Chrome trace shows it as a ``user_annotation`` event on the host
+    clock of the CUDA runtime calls, which the device events' correlation
+    ids tie to the card's work; under
+    ``torch.autograd.profiler.emit_nvtx`` it is an NVTX range), else a
+    shared null context, so a span off costs one check. Spans nest on the
+    caller's thread: a span's parent is the span that encloses it."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 class throughput_probe:

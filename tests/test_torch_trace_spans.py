@@ -1,0 +1,256 @@
+"""The port's own spans (``utils.profiling.trace``) on the DFA main path:
+the tree a traced ``count()`` and ``presplit()`` record, the passes and the
+exact fallback of an automaton that never synchronizes, the one check a
+span costs with no profiler, and (on a card) the device events placed on
+the spans' host clock by their launches.
+
+The file imports no JAX, so that its card test runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_trace_spans.py -q
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from regex_fpga_tpu_torch import api
+from regex_fpga_tpu_torch.models import CompiledDfa
+from regex_fpga_tpu_torch.utils.config import EngineConfig
+from regex_fpga_tpu_torch.utils.profiling import trace
+
+#: 64 lanes of at least 16 bytes, chunks of 16 KiB: a 34,800-byte text
+#: takes three chunks, the last with a tail shorter than its lanes x k
+SMALL = EngineConfig(num_blocks=64, min_block_bytes=16, chunk_bytes=1 << 14)
+TEXT = b"Hello world, it's 2024 and we're testing   the tokenizer!\n" * 600
+
+
+def _events(prof, tmp_path):
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and "ts" in e]
+
+
+def _tree(events):
+    """The program's spans as nested (name, children) tuples."""
+    spans = sorted((e for e in events if e["name"].startswith("rf.")),
+                   key=lambda e: (e["ts"], -e.get("dur", 0)))
+    root: list = []
+    stack: list = []  # (end, children list)
+    for e in spans:
+        assert e["cat"] == "user_annotation", e
+        end = e["ts"] + e.get("dur", 0)
+        while stack and stack[-1][0] <= e["ts"]:
+            stack.pop()
+        kids: list = []
+        (stack[-1][1] if stack else root).append((e["name"], kids))
+        stack.append((end, kids))
+    return _freeze(root)
+
+
+def _freeze(nodes):
+    return tuple((name, _freeze(kids)) for name, kids in nodes)
+
+
+def _traced(fn, tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, _events(prof, tmp_path)
+
+
+UPLOAD = ("rf.device.upload", ())
+PASS = ("rf.engine.pass", ())
+READBACK = ("rf.device.readback", ())
+KGRAM = ("rf.engine.kgram", (UPLOAD, PASS, READBACK))
+
+
+def test_count_span_tree(tmp_path):
+    tok = api.compile_tokenizer(config=SMALL, device="cpu")
+    want = tok.count(TEXT)
+    got, events = _traced(lambda: tok.count(TEXT), tmp_path)
+    assert got == want
+    # two whole chunks on K3; the last on K3, then its tail on K2
+    k1 = ("rf.engine.k1", (UPLOAD, PASS, READBACK))
+    assert _tree(events) == (("rf.api.count", (KGRAM, KGRAM, KGRAM, k1)),)
+
+
+def test_presplit_span_tree(tmp_path):
+    tok = api.compile_tokenizer(config=SMALL, device="cpu")
+    text = TEXT[:40_000]
+    want = tok.presplit(text)
+    got, events = _traced(lambda: tok.presplit(text), tmp_path)
+    np.testing.assert_array_equal(got, want)
+    chunk = (("rf.engine.k1", (UPLOAD, PASS)), ("rf.engine.positions", ()),
+             READBACK)
+    assert _tree(events) == (("rf.api.presplit", chunk * 3),)
+
+
+def test_one_pass_per_chunk_when_the_guess_holds(tmp_path):
+    tok = api.compile_tokenizer(config=SMALL, device="cpu")
+    _, events = _traced(lambda: (tok.count(TEXT), tok.presplit(TEXT)), tmp_path)
+    names = [e["name"] for e in events]
+    chunks = sum(n in ("rf.engine.kgram", "rf.engine.k1") for n in names)
+    assert chunks == 4 + 3 and names.count("rf.engine.pass") == chunks
+
+
+def parity_dfa() -> CompiledDfa:
+    """Every byte flips the state: it never synchronizes."""
+    table = np.zeros((256, 2), dtype=np.int32)
+    table[:, 0] = 1
+    return CompiledDfa(table=table, accept=np.array([False, True]), start=0,
+                       dead=-1)
+
+
+def test_parity_takes_passes_and_the_fallback(tmp_path):
+    """64 lanes of 17 bytes: each lane's guessed entry (the parity of the
+    block before it) is wrong on every other lane, the Jacobi rounds run
+    out, and the chunk takes the exact fallback."""
+    config = EngineConfig(num_blocks=64, min_block_bytes=16,
+                          chunk_bytes=1 << 14, scan_backend="device")
+    m = api.DfaMatcher(parity_dfa(), config, device="cpu")
+    stream = np.random.default_rng(0).integers(0, 256, 64 * 17, dtype=np.uint8)
+    rep, events = _traced(lambda: m.scan(stream), tmp_path)
+    assert not rep.metrics.converged
+    assert rep.total == len(stream) // 2  # state 1 before every other byte
+    (k1,) = _tree(events)
+    name, kids = k1
+    assert name == "rf.engine.k1"
+    passes = sum(k == PASS for k in kids)
+    assert passes == config.max_iters + 1  # the guess, the rounds, the output
+    fallback = [k for k in kids if k[0] == "rf.engine.fallback"]
+    assert fallback == [("rf.engine.fallback", (UPLOAD,))]
+
+
+def test_spans_change_no_result(tmp_path):
+    tok = api.compile_tokenizer(config=SMALL, device="cpu")
+    untraced = tok.count(TEXT), tok.presplit(TEXT)
+    traced, _ = _traced(lambda: (tok.count(TEXT), tok.presplit(TEXT)), tmp_path)
+    assert traced[0] == untraced[0]
+    np.testing.assert_array_equal(traced[1], untraced[1])
+
+
+def test_trace_off_is_one_check(monkeypatch):
+    """With no profiler recording, a span never enters record_function."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    assert trace("rf.x") is trace("rf.y")  # one shared null context
+    with trace("rf.x"):
+        with trace("rf.y"):
+            pass
+    tok = api.compile_tokenizer(config=SMALL, device="cpu")
+    assert tok.count(TEXT) > 0 and len(tok.presplit(TEXT)) > 0
+
+
+def test_trace_on_enters_record_function(monkeypatch):
+    seen = []
+    real = torch.profiler.record_function
+
+    def spy(name):
+        seen.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace("rf.api.x"):
+            pass
+    assert seen == ["rf.api.x"]
+
+
+# ---------------------------------------------------------------- the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inside(e, span) -> bool:
+    return span.ts <= e.ts and e.end <= span.end
+
+
+@pytest.mark.cuda
+def test_device_work_is_placed_on_the_host_clock_by_its_launch(cuda, tmp_path):
+    """The profiler's device clock may run off the host's: the span
+    readers pair each device event with its launch by stream order (the
+    pairing the profiler's correlation ids give), and with each idle
+    interval placed by its launch, a copy ends while the host waits on
+    it."""
+    from benchmark import spans as S
+    from benchmark import trace as T
+
+    tok = api.compile_tokenizer(device=cuda)
+    rng = np.random.default_rng(0)
+    words = np.frombuffer(TEXT, np.uint8)
+    data = words[rng.integers(0, len(words), 64 << 20)]  # 64 MiB of its bytes
+    data = torch.from_numpy(data).pin_memory().numpy()  # as a pinning loader's
+    docs = [TEXT[:int(n)] for n in rng.integers(200, 20_000, 50)]
+    want = tok.count(data), [tok.presplit(d) for d in docs]  # builds the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = [tok.count(data) for _ in range(3)], [tok.presplit(d) for d in docs]
+        torch.cuda.synchronize()
+    assert got[0] == [want[0]] * 3
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    raw = [e for e in doc["traceEvents"] if e.get("ph") == "X" and "ts" in e]
+    events = T.events_from_chrome(doc)
+    corr = {id(e): r.get("args", {}).get("correlation") for e, r in zip(events, raw)}
+    tr = T.Trace(events, min(e.ts for e in events), max(e.end for e in events), 53, 0, 0)
+
+    found = S.enqueued(tr)
+    assert found is not None
+    pairs, _ = found
+    assert len(pairs) >= len(tr.device()) - 100  # all but records lost at the start
+    assert all(corr[id(d)] == corr[id(c)] for d, c in pairs)
+
+    # the upload span holds the call that enqueued each shard's copy, and
+    # each pass of a K3 chunk launches K3
+    spans = S.program(tr)
+    uploads = [e for e in spans if e.name == "rf.device.upload"]
+    kgram = [e for e in spans if e.name == "rf.engine.kgram"]
+    passes = [e for e in spans if e.name == "rf.engine.pass"
+              and any(_inside(e, k) for k in kgram)]
+    launch = {id(d): c for d, c in pairs}
+    h2d = sorted((d for d in tr.of("gpu_memcpy") if "HtoD" in d.name),
+                 key=lambda d: -d.dur)[:3]
+    for copy in h2d:
+        call = launch[id(copy)]
+        assert call.name.startswith("cudaMemcpy"), call
+        assert sum(_inside(call, u) for u in uploads) == 1
+    k3 = [launch[id(d)] for d in tr.of("kernel") if "kgram" in d.name]
+    assert len(passes) == 3
+    assert all(any(_inside(c, p) for c in k3) for p in passes)
+
+    # placed by the launches, each 64 MiB copy (over 1 ms on the card)
+    # ends while the host waits on it: the idle time after it begins inside
+    # that wait. Read on the profiler's raw device clock it need not.
+    idle = S.idle_on_host(tr)
+    waits = sorted((e for e in tr.of("cuda_runtime") if e.name in S.WAITS),
+                   key=lambda e: e.ts)
+    for copy in h2d:
+        call = launch[id(copy)]
+        wait = next(w for w in waits if w.ts >= call.end)
+        after = next(a for a, _ in idle if a >= call.ts)
+        assert wait.ts <= after <= wait.end + 50.0, (copy, call, wait, after)
+
+
+@pytest.mark.cuda
+def test_spans_are_on_under_emit_nvtx(cuda):
+    tok = api.compile_tokenizer(device=cuda)
+    want = tok.count(TEXT)
+    assert trace("rf.x") is trace("rf.y")
+    with torch.autograd.profiler.emit_nvtx():
+        assert torch.autograd._profiler_enabled()
+        assert trace("rf.x") is not trace("rf.y")  # record_function: NVTX ranges
+        assert tok.count(TEXT) == want
