@@ -368,10 +368,11 @@ class DfaMatcher:
 
     # ------------------------------------------------------------ plumbing
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array as a tensor on the matcher's device."""
+    def _upload(self, arr: np.ndarray, non_blocking: bool = False) -> torch.Tensor:
+        """A host array as a tensor on the matcher's device (``non_blocking``
+        as ``host_to_device`` has it)."""
         with trace("rf.device.upload"):
-            return host_to_device(arr, self.device)
+            return host_to_device(arr, self.device, non_blocking=non_blocking)
 
     def _lanes(self, n: int) -> int:
         """The chain lanes of a chunk of ``n`` bytes (or k-gram steps): the
@@ -621,18 +622,28 @@ class DfaMatcher:
                     main_len = (steps // nb) * nb * kg.k
                     if main_len:
                         # the raw text goes to the k-gram kernel, which maps
-                        # it to classes itself
+                        # it to classes itself; a pinned chunk's copy is
+                        # only queued, and the scan's first read (which
+                        # brings back the total and the final state) waits
+                        # for it
                         with trace("rf.engine.kgram"):
-                            res = dfa_scan_kgram(
-                                ta, self._upload(chunk[:main_len]),
-                                num_blocks=nb, start=cur,
-                                max_iters=self.config.max_iters, maps=maps,
-                            )
+                            try:
+                                res = dfa_scan_kgram(
+                                    ta, self._upload(chunk[:main_len],
+                                                     non_blocking=True),
+                                    num_blocks=nb, start=cur,
+                                    max_iters=self.config.max_iters, maps=maps,
+                                )
+                            except BaseException:
+                                # the queued copy may still read ``chunk``
+                                if self.device.type == "cuda":
+                                    torch.cuda.current_stream(
+                                        self.device).synchronize()
+                                raise
                             if not res.converged:
                                 diverged = True
                                 break
-                            with trace("rf.device.readback"):
-                                stream_total += int(res.total)
+                            stream_total += int(res.total)
                             cur = int(res.final_state)
                     if main_len < len(chunk):
                         c, cur, _, _ = self._counts_chunk(chunk[main_len:],

@@ -222,8 +222,8 @@ def kgram_maps(kg: KgramTables) -> KgramMaps | None:
 
 
 class KgramScanResult(NamedTuple):
-    final_state: torch.Tensor  # () int32
-    total: torch.Tensor        # () int64 total matches
+    final_state: torch.Tensor  # () int32, on the host (read with the total)
+    total: torch.Tensor        # () int64 total matches, on the host
     converged: bool
     iterations: int            # full passes executed
 
@@ -248,11 +248,11 @@ def _speculative_entries(ta, blocks: torch.Tensor, start: int,
                           device=blocks.device)
     if ov <= 0:
         return entries0
-    # lane l replays the tail of block l-1; lane 0's rows are junk
-    tails = torch.cat([blocks[:1, b - ov:], blocks[:-1, b - ov:]], dim=0)
-    spec, _ = kgram_pass_full(ta, tails.transpose(0, 1), entries0, maps)
-    spec[0] = start
-    return spec
+    # lane l replays the tail of its own block in place (a strided view, no
+    # copy): its final state is lane l+1's guess
+    spec, _ = kgram_pass_full(ta, blocks[:, b - ov:].transpose(0, 1),
+                              entries0, maps)
+    return torch.cat([entries0[:1], spec[:-1]])
 
 
 def dfa_scan_kgram(
@@ -275,7 +275,12 @@ def dfa_scan_kgram(
     Each lane first replays the tail of the previous block (speculation);
     full passes then repeat until the entry vector is a fixpoint, so the
     totals of the converging pass were computed from the true entries.
-    ``iterations`` counts those full passes, the first included."""
+    ``iterations`` counts those full passes, the first included.
+
+    The host waits once a pass: everything up to the pass's verdict is
+    queued, and one copy brings back the verdict, the total and the final
+    state together (a pinned upload before the call may still be in flight
+    until then)."""
     if maps is not None:
         if classes_k.shape[0] % maps.k:
             raise ValueError(f"length {classes_k.shape[0]} is not a multiple "
@@ -288,24 +293,29 @@ def dfa_scan_kgram(
     if l % num_blocks:
         raise ValueError("stream length must be divisible by num_blocks")
     b = l // num_blocks
-    dev = classes_k.device
     blocks = classes_k.reshape(num_blocks, b, *classes_k.shape[1:])
     cls_seq = blocks.transpose(0, 1)  # (B, NB) columns over block-major storage
-    start_t = torch.tensor([start], dtype=torch.int32, device=dev)
 
+    # lane 0 enters at ``start`` on every pass (entries[0] == start), so the
+    # entries are a fixpoint when every other lane's equals the final state
+    # of the lane before it
     entries = _speculative_entries(ta, blocks, start, overlap, maps)
-    finals = totals = torch.zeros(num_blocks, dtype=torch.int32, device=dev)
+    final = total = 0
     converged, it = False, 0
     while not converged and it < max_iters:
-        with trace("rf.engine.pass"):  # a pass and its convergence read
+        with trace("rf.engine.pass"):  # a pass and its verdict, queued
             finals, totals = kgram_pass_full(ta, cls_seq, entries, maps)
-            new_entries = torch.cat([start_t, finals[:-1]])
-            converged = bool((new_entries == entries).all())
-        entries = new_entries
+            verdict = torch.stack([(finals[:-1] != entries[1:]).sum(),
+                                   totals.sum(), finals[-1].long()])
+        with trace("rf.device.readback"):  # the host's one wait a pass
+            moved, total, final = verdict.tolist()
+        converged = moved == 0
+        if not converged:
+            entries = torch.cat([entries[:1], finals[:-1]])
         it += 1
     return KgramScanResult(
-        final_state=finals[-1],
-        total=totals.sum(),
+        final_state=torch.tensor(final, dtype=torch.int32),
+        total=torch.tensor(total, dtype=torch.int64),
         converged=converged,
         iterations=it,
     )

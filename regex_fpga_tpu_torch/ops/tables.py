@@ -51,16 +51,23 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def host_to_device(arr, device, dtype=None) -> torch.Tensor:
+def host_to_device(arr, device, dtype=None,
+                   non_blocking: bool = False) -> torch.Tensor:
     """A host array (numpy, or a bytes-like object as uint8) as a tensor on
     ``device``. Read-only buffers (``bytes`` input) are shared, not copied:
-    the scans only read them."""
+    the scans only read them. With ``non_blocking``, a copy to a card from
+    pinned memory is only queued on the current stream (from pageable
+    memory it waits as before): the caller keeps ``arr`` unchanged until a
+    later read on that stream has returned."""
     if isinstance(arr, (bytes, bytearray, memoryview)):
         arr = np.frombuffer(arr, np.uint8)
     arr = np.ascontiguousarray(arr, dtype=dtype)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        return torch.from_numpy(arr).to(device)
+        host = torch.from_numpy(arr)
+    non_blocking = (non_blocking and torch.device(device).type == "cuda"
+                    and host.is_pinned())
+    return host.to(device, non_blocking=non_blocking)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -427,6 +427,48 @@ def test_api_on_card_matches_cpu(cuda):
                                   want.match_positions[0])
 
 
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_count_waits_once_a_chunk(cuda, chunks, monkeypatch):
+    """count() of a pinned input waits on the card once a K3 chunk whose
+    first pass verifies: the upload is only queued, and one read brings
+    back the pass's verdict, its total and the final state. A pageable
+    input, whose upload waits, gives the same answer."""
+    import warnings
+
+    from regex_fpga_tpu_torch import api
+
+    cfg = api.EngineConfig(scan_backend="device", chunk_bytes=(64 << 20) // chunks)
+    tok = api.compile_tokenizer(config=cfg, device=cuda)
+    steps = cfg.chunk_bytes // 4
+    assert steps % tok._lanes(steps) == 0  # whole chunks on K3, no K2 tail
+    rng = np.random.default_rng(chunks)
+    line = np.frombuffer(b"The quick brown fox jumps over 1234 lazy dogs, it's "
+                         b"99.5% fine!\n", np.uint8)
+    pageable = line[rng.integers(0, len(line), 64 << 20)]
+    pinned = torch.from_numpy(pageable).pin_memory().numpy()
+    want = tok.count(pageable)  # builds the kernels and the k-gram tables
+    passes = []
+    real = api.dfa_scan_kgram
+
+    def spy(*args, **kw):
+        res = real(*args, **kw)
+        passes.append(res.iterations)
+        return res
+    monkeypatch.setattr(api, "dfa_scan_kgram", spy)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = tok.count(pinned)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in seen if "synchronizing" in str(w.message)]
+    assert got == want
+    assert passes == [1] * chunks
+    assert len(syncs) == chunks, syncs
+
+
 def block_fn_case(rng, kind, c, s, nb, b):
     """A (C, S) table and (NB, B) uint8 class ids of one kind: "random";
     "narrow" (every entry in states 0-2: at most 3 chains after a byte);

@@ -123,6 +123,108 @@ def test_scan_kgram_mod3_iterations_match_jax(max_iters):
     assert_scan_equal(got, want)
 
 
+def reset_counter_tables():
+    """Three states counting bytes mod 3, ``b`` resetting to 0, state 1
+    accepting. A block with no ``b`` hands its entry's error on to the
+    next, so the guesses fail and each Jacobi pass carries the right
+    entries one block further."""
+    table = np.empty((256, 3), dtype=np.int32)
+    for s in range(3):
+        table[:, s] = (s + 1) % 3
+    table[ord("b"), :] = 0
+    return table, np.array([False, True, False])
+
+
+def reset_counter_text(seed, nb, block, resets):
+    """``nb`` blocks of ``block`` bytes of ``a``, one ``b`` at a seeded
+    place in each block of ``resets``."""
+    rng = np.random.default_rng(seed)
+    text = np.full(nb * block, ord("a"), dtype=np.uint8)
+    for blk in resets:
+        text[blk * block + int(rng.integers(0, block))] = ord("b")
+    return text
+
+
+@pytest.mark.parametrize("raw", [False, True])
+@pytest.mark.parametrize("levels,overlap,seed", [(1, 0, 0), (1, 1, 1),
+                                                 (2, 0, 2), (2, 1, 3)])
+def test_scan_kgram_failed_guesses_match_jax(levels, overlap, seed, raw):
+    """Guesses that the first pass does not verify: the passes that follow,
+    and the one read a pass, give the JAX package's final state, total,
+    ``converged`` and ``iterations``, over class ids and over raw text."""
+    jt, pt = both_tables(*reset_counter_tables())
+    kj = jk.build_kgram(jt, levels=levels)
+    kt = tk.build_kgram(pt, levels=levels)
+    text = reset_counter_text(seed, 16, 64, resets=(0, 3, 4, 10))
+    ck = jk.map_kgram_classes(kj, text)
+    want = jk.dfa_scan_kgram(jnp.asarray(kj.table), jnp.asarray(kj.acc_table),
+                             jnp.asarray(ck), num_blocks=16, overlap=overlap)
+    got = tk.dfa_scan_kgram(packed(kt.table, kt.acc_table),
+                            torch.as_tensor(text if raw else ck),
+                            num_blocks=16, overlap=overlap,
+                            maps=tk.kgram_maps(kt) if raw else None)
+    assert got.converged and got.iterations >= 2
+    assert_scan_equal(got, want)
+
+
+@pytest.mark.parametrize("raw", [False, True])
+def test_scan_kgram_runs_out_of_passes_like_jax(raw):
+    """A run of eleven blocks with no reset needs more passes than
+    ``max_iters`` allows: unconverged, with the last pass's total and final
+    state, as in the JAX package."""
+    jt, pt = both_tables(*reset_counter_tables())
+    kj = jk.build_kgram(jt, levels=2)
+    kt = tk.build_kgram(pt, levels=2)
+    text = reset_counter_text(5, 16, 64, resets=(0, 12))
+    ck = jk.map_kgram_classes(kj, text)
+    want = jk.dfa_scan_kgram(jnp.asarray(kj.table), jnp.asarray(kj.acc_table),
+                             jnp.asarray(ck), num_blocks=16, max_iters=3,
+                             overlap=1)
+    got = tk.dfa_scan_kgram(packed(kt.table, kt.acc_table),
+                            torch.as_tensor(text if raw else ck), num_blocks=16,
+                            max_iters=3, overlap=1,
+                            maps=tk.kgram_maps(kt) if raw else None)
+    assert not got.converged and got.iterations == 3
+    assert_scan_equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["reset counter", "mod 3"])
+def test_count_chunk_loop_equals_scan(which, monkeypatch):
+    """count() over many chunks, each a k-gram scan with its one read, and
+    the carry state handed on from chunk to chunk: equal to scan().total
+    and to a serial walk, where chunks take several passes (the reset
+    counter) and where they run out of passes (a mod-3 counter never
+    synchronizes: the exact fallback)."""
+    from regex_fpga_tpu_torch import api as tapi
+    from regex_fpga_tpu_torch.models import CompiledDfa
+    from regex_fpga_tpu_torch.utils.config import EngineConfig
+
+    table, accept = reset_counter_tables()
+    if which == "mod 3":
+        table[ord("b"), :] = table[ord("a"), :]
+    cfg = EngineConfig(scan_backend="device", num_blocks=16, min_block_bytes=4,
+                       chunk_bytes=1024, max_iters=8)
+    m = tapi.DfaMatcher(CompiledDfa(table=table, accept=accept, start=0, dead=-1),
+                        cfg, device="cpu")
+    assert m._kgram() is not None
+    passes = []
+    real = tapi.dfa_scan_kgram
+
+    def spy(*args, **kw):
+        res = real(*args, **kw)
+        passes.append((res.iterations, res.converged))
+        return res
+    monkeypatch.setattr(tapi, "dfa_scan_kgram", spy)
+    text = bytes(reset_counter_text(7, 57, 64, resets=range(0, 57, 3))[:3641])
+    got = m.count(text)
+    assert got == m.scan(text).total == jk_total(m, text)
+    if which == "mod 3":
+        assert passes == [(cfg.max_iters, False)]  # the first chunk diverges
+    else:
+        assert len(passes) == 4 and all(conv for _, conv in passes)
+        assert max(it for it, _ in passes) >= 2
+
+
 @pytest.mark.parametrize("seed,s,block_major,dtype", [
     (0, 23, False, torch.int32), (1, 40, True, torch.int16),
     (2, 5, True, torch.uint8),

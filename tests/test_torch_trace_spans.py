@@ -232,17 +232,21 @@ def test_device_work_is_placed_on_the_host_clock_by_its_launch(cuda, tmp_path):
     assert len(passes) == 3
     assert all(any(_inside(c, p) for c in k3) for p in passes)
 
-    # placed by the launches, each 64 MiB copy (over 1 ms on the card)
-    # ends while the host waits on it: the idle time after it begins inside
-    # that wait. Read on the profiler's raw device clock it need not.
+    # placed by the launches, the card's idle time after each 64 MiB copy
+    # (over 1 ms on the card) and the work queued behind it (closed by the
+    # first launch after the host's next wait) begins between the last
+    # launch before that wait and the wait's end. Read on the profiler's
+    # raw device clock it need not.
     idle = S.idle_on_host(tr)
     waits = sorted((e for e in tr.of("cuda_runtime") if e.name in S.WAITS),
                    key=lambda e: e.ts)
+    calls = sorted((c for _, c in pairs), key=lambda c: c.ts)
     for copy in h2d:
         call = launch[id(copy)]
         wait = next(w for w in waits if w.ts >= call.end)
-        after = next(a for a, _ in idle if a >= call.ts)
-        assert wait.ts <= after <= wait.end + 50.0, (copy, call, wait, after)
+        last = max((c for c in calls if c.ts < wait.ts), key=lambda c: c.ts)
+        after = next(a for a, b in idle if b >= wait.end)
+        assert last.ts - 50.0 <= after <= wait.end + 50.0, (copy, last, wait, after)
 
 
 @pytest.mark.cuda
