@@ -1334,9 +1334,9 @@ class TokenizerMatcher(DfaMatcher):
         self._setup(tables, tables.accept.numpy(), tok.start, config, device)
 
     def presplit(self, text: bytes | np.ndarray) -> np.ndarray:
-        """Token-start byte offsets for ``text`` (maximal munch; the
-        semantics are those of
-        ``regex_fpga_tpu.models.tokenizer_dfa.boundaries_from_flags``)."""
+        """Token-start byte offsets for ``text``: the tokenizer DFA's flags
+        as ``models.tokenizer_dfa.boundaries_from_flags`` reads them, each
+        walked back to its character's first byte in UTF-8 mode."""
         with trace("rf.api.presplit"):
             stream = _as_streams(text)[0]
             n = len(stream)
@@ -1350,11 +1350,20 @@ class TokenizerMatcher(DfaMatcher):
             # 16 MiB).
             pos = self._scan_match_positions(stream)
             starts = pos[np.searchsorted(pos, 1):] - 1
-            head = np.zeros(0 if len(starts) and starts[0] == 0 else 1,
-                            np.int64)
             final = bool(self._accept_eof[self._last_final]) and n > 1
             tail = np.full(1 if final else 0, n - 1, np.int64)
-            return np.concatenate([head, starts, tail])
+            starts = np.concatenate([starts, tail])
+            if getattr(self.tok, "utf8", False):
+                # a flag sits on the last byte of a token's first character:
+                # step back over its continuation bytes (at most three)
+                for _ in range(3):
+                    cont = (stream[starts] & 0xC0) == 0x80
+                    if not cont.any():
+                        break
+                    starts[cont] -= 1
+            head = np.zeros(0 if len(starts) and starts[0] == 0 else 1,
+                            np.int64)
+            return np.concatenate([head, starts])
 
     def pieces(self, text: bytes) -> list[bytes]:
         starts = self.presplit(text).tolist()
@@ -1690,8 +1699,14 @@ def compile_regex(pattern: str | bytes, anchored: bool = False,
 
 def compile_tokenizer(pattern: str = GPT2_PRESPLIT,
                       config: EngineConfig = DEFAULT_CONFIG,
-                      device=None) -> TokenizerMatcher:
-    return TokenizerMatcher(build_tokenizer_dfa(pattern), config, device)
+                      device=None, *, utf8: bool = False) -> TokenizerMatcher:
+    """A pre-split matcher for ``pattern`` (``utf8=True``: over UTF-8
+    characters, alternatives leftmost-first, as ``build_tokenizer_dfa``
+    says; off, it builds as it always has). The automaton's build is an
+    ``rf.compile.tokenizer`` span."""
+    with trace("rf.compile.tokenizer"):
+        tok = build_tokenizer_dfa(pattern, utf8=utf8)
+    return TokenizerMatcher(tok, config, device)
 
 
 @dataclasses.dataclass

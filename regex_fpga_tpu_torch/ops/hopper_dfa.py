@@ -29,11 +29,14 @@ The combine is the exception: it requires its input in range
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import weakref
 
 import torch
 
 from .. import _build
+from ..utils.profiling import trace
 
 __all__ = [
     "LAUNCHES",
@@ -101,6 +104,29 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: the span around a K1 or K2 launch that reads its table from global memory
+GLOBAL_TABLE_SPAN = "rf.engine.global_table"
+
+
+@functools.lru_cache(maxsize=256)
+def _table_in_global(mode: str, num_classes: int, num_states: int,
+                     num_lanes: int, num_streams: int,
+                     class_dtype: torch.dtype) -> bool:
+    return dfa_chain_route(mode, num_classes, num_states, num_lanes,
+                           num_streams, class_dtype)["table"] == "global"
+
+
+def _table_span(mode: str, cls_seq: torch.Tensor, c: int, s: int, nb: int,
+                num_streams: int = 1):
+    """``rf.engine.global_table`` around a launch whose route keeps the
+    table in global memory (the route cached per shape), while a profiler
+    records; else the shared null span."""
+    if torch.autograd._profiler_enabled() and _table_in_global(
+            mode, c, s, nb, num_streams, cls_seq.dtype):
+        return trace(GLOBAL_TABLE_SPAN)
+    return contextlib.nullcontext()
+
+
 def _require_cuda(t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {t.device}")
@@ -125,7 +151,7 @@ def dfa_chain(table, accept, cls_seq, entries, mode: str = "finals"):
     out = states if states is not None else acc
     out_ls, out_ss = (out.stride(1), out.stride(0)) if out is not None else (0, 0)
     LAUNCHES["dfa_chain"] += 1
-    with torch.cuda.device(cls_seq.device):
+    with torch.cuda.device(cls_seq.device), _table_span(mode, cls_seq, c, s, nb):
         rc = _build.library().dfa_chain(
             cls_seq.data_ptr(), _CLASS_DTYPES[cls_seq.dtype],
             cls_seq.stride(1), cls_seq.stride(0),
@@ -158,7 +184,8 @@ def dfa_chain_counts(table, accept, cls_seq, entries,
     finals = torch.empty(nb, dtype=torch.int32, device=cls_seq.device)
     counts = torch.zeros((n, s), dtype=torch.int32, device=cls_seq.device)
     LAUNCHES["dfa_chain_counts"] += 1
-    with torch.cuda.device(cls_seq.device):
+    with torch.cuda.device(cls_seq.device), _table_span("counts", cls_seq, c, s,
+                                                        nb, n):
         rc = _build.library().dfa_chain_counts(
             cls_seq.data_ptr(), _CLASS_DTYPES[cls_seq.dtype],
             cls_seq.stride(1), cls_seq.stride(0),

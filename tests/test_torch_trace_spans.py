@@ -162,6 +162,46 @@ def test_trace_on_enters_record_function(monkeypatch):
     assert seen == ["rf.api.x"]
 
 
+def test_compile_span_wraps_the_build(tmp_path):
+    """``rf.compile.tokenizer`` holds the automaton's build, and the
+    matcher it builds answers as one built untraced."""
+    tok, events = _traced(lambda: api.compile_tokenizer(config=SMALL, device="cpu"),
+                          tmp_path)
+    assert _tree(events) == (("rf.compile.tokenizer", ()),)
+    untraced = api.compile_tokenizer(config=SMALL, device="cpu")
+    np.testing.assert_array_equal(tok.tok.table, untraced.tok.table)
+    assert tok.count(TEXT) == untraced.count(TEXT)
+
+
+@pytest.mark.parametrize("table", ["global", "shared uint16", "shared uint32"])
+def test_global_table_span_follows_the_route(table, monkeypatch, tmp_path):
+    """``rf.engine.global_table`` opens around a K1/K2 launch only where its
+    route keeps the table in global memory, asks for the route once per
+    shape, and costs no route lookup with no profiler."""
+    from regex_fpga_tpu_torch.ops import hopper_dfa
+
+    asked = []
+
+    def route(*args):
+        asked.append(args)
+        return {"table": table}
+
+    monkeypatch.setattr(hopper_dfa, "dfa_chain_route", route)
+    hopper_dfa._table_in_global.cache_clear()
+    cls = torch.zeros((4, 8), dtype=torch.uint8)
+    with hopper_dfa._table_span("counts", cls, 110, 1899, 8):
+        pass
+    assert asked == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with hopper_dfa._table_span("counts", cls, 110, 1899, 8):
+                pass
+    hopper_dfa._table_in_global.cache_clear()
+    assert len(asked) == 1
+    names = [e["name"] for e in _events(prof, tmp_path)]
+    assert names.count("rf.engine.global_table") == (3 if table == "global" else 0)
+
+
 # ---------------------------------------------------------------- the card
 
 
@@ -258,3 +298,40 @@ def test_spans_are_on_under_emit_nvtx(cuda):
         assert torch.autograd._profiler_enabled()
         assert trace("rf.x") is not trace("rf.y")  # record_function: NVTX ranges
         assert tok.count(TEXT) == want
+
+
+@pytest.mark.cuda
+def test_global_table_span_on_the_card(cuda, tmp_path):
+    """On the card every K1/K2 launch of a 1,899-state tokenizer's count()
+    and presplit() lies inside ``rf.engine.global_table``, none of the GPT-2
+    automaton's does, and the spans change no result."""
+    import json as _json
+
+    from benchmark import spans as S
+    from benchmark import trace as T
+
+    from pathlib import Path
+
+    conf = _json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                        / "cl100k-pretok-utf8.json").read_text())
+    big = api.compile_tokenizer(conf["pat"], device=cuda, **conf["port"]["kwargs"],
+                                config=EngineConfig(scan_backend="device"))
+    small = api.compile_tokenizer(device=cuda)
+    text = TEXT * 40
+    want = [(m.count(text), m.presplit(text)) for m in (big, small)]
+    for m, (count, starts) in zip((big, small), want):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = m.count(text), m.presplit(text)
+            torch.cuda.synchronize()
+        assert got[0] == count
+        np.testing.assert_array_equal(got[1], starts)
+        path = tmp_path / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = T.events_from_chrome(_json.loads(path.read_text()))
+        tr = T.Trace(events, min(e.ts for e in events), max(e.end for e in events), 2, 0, 0)
+        marks = [e for e in S.program(tr) if e.name == "rf.engine.global_table"]
+        pairs, _ = S.enqueued(tr)
+        chain = [c for d, c in pairs if d.cat == "kernel" and "dfa_chain" in d.name]
+        assert chain
+        inside = S.inside(chain, marks)
+        assert all(inside) if m is big else not any(inside) and not marks
