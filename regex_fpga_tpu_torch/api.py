@@ -49,6 +49,7 @@ walker on the H100's measured priors and takes the faster, ``"device"`` and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import warnings
@@ -374,6 +375,18 @@ class DfaMatcher:
         with trace("rf.device.upload"):
             return host_to_device(arr, self.device, non_blocking=non_blocking)
 
+    @contextlib.contextmanager
+    def _until_read(self):
+        """Around a non-blocking upload and the scan whose read waits for
+        it: if the scan raises before that read, wait for the stream, since
+        the queued copy may still read the caller's buffer."""
+        try:
+            yield
+        except BaseException:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            raise
+
     def _lanes(self, n: int) -> int:
         """The chain lanes of a chunk of ``n`` bytes (or k-gram steps): the
         block rule without its divisibility step, so that a length with few
@@ -627,19 +640,13 @@ class DfaMatcher:
                         # brings back the total and the final state) waits
                         # for it
                         with trace("rf.engine.kgram"):
-                            try:
+                            with self._until_read():
                                 res = dfa_scan_kgram(
                                     ta, self._upload(chunk[:main_len],
                                                      non_blocking=True),
                                     num_blocks=nb, start=cur,
                                     max_iters=self.config.max_iters, maps=maps,
                                 )
-                            except BaseException:
-                                # the queued copy may still read ``chunk``
-                                if self.device.type == "cuda":
-                                    torch.cuda.current_stream(
-                                        self.device).synchronize()
-                                raise
                             if not res.converged:
                                 diverged = True
                                 break
@@ -923,18 +930,27 @@ class DfaMatcher:
     def _counts_chunk(self, raw: np.ndarray, cur: int):
         """One chunk's (counts (S,) int64, final state, iterations,
         converged) from state ``cur`` on the k=1 counts engine, or on the
-        exact path when it does not converge."""
+        exact path when it does not converge. A pinned chunk's copy is only
+        queued: the scan's one read, which brings back its verdict and
+        counts, waits for it."""
         with trace("rf.engine.k1"):
-            tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
-            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                max_iters=self.config.max_iters, emit="counts")
+            with self._until_read():
+                tables, ids, nb, lead = self._chunk_ids(
+                    self._upload(raw, non_blocking=True))
+                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                    max_iters=self.config.max_iters,
+                                    emit="counts")
+            if not res.domain_ok:
+                raise RuntimeError(
+                    "device DFA pass produced out-of-domain state ids: "
+                    "corrupt table"
+                )
             if not res.converged:
                 fb = self._exact_fallback(raw, cur)
                 with trace("rf.device.readback"):
                     counts = fb.counts.cpu().numpy().astype(np.int64)
                 return counts, int(fb.final_state), fb.iterations, False
-            with trace("rf.device.readback"):
-                counts = res.counts.cpu().numpy().astype(np.int64)
+            counts = res.counts.numpy().astype(np.int64)
             if lead:  # the pad steps visited the entry state
                 counts[cur] -= lead * self._host_tables()[2][cur]
             return counts, int(res.final_state), res.iterations, True

@@ -14,6 +14,10 @@ on a device flag) and the output pass runs again from the fixpoint; the
 result is exact whenever ``converged`` is True. Automata that never
 synchronize (parity counters) are reported as not converged, and callers
 fall back to ``dfa_engine``.
+
+The counts mode waits on the host once when the guess verifies: the
+speculation, the counting pass and its verdict are queued, and one copy
+brings back the verdict with the counts (``_scan_counts``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.profiling import trace
-from .hopper_dfa import dfa_chain, dfa_chain_counts
+from .hopper_dfa import dfa_chain, dfa_chain_counts, table_in_range
 from .tables import DfaTables
 
 __all__ = [
@@ -146,6 +150,16 @@ def _run_pass(pass_fn, pass_finals, entries0, shift, max_iters: int):
         guessed = bool((entries == entries0).all())
     if guessed:
         return out0, True, 1
+    entries, done, it = _jacobi(pass_finals, entries, shift, max_iters)
+    with trace("rf.engine.pass"):
+        return pass_fn(entries), done, it
+
+
+def _jacobi(pass_finals, entries, shift, max_iters: int):
+    """The Jacobi rounds after a rejected guess, from the entries that the
+    first pass shifted in: each round (an ``rf.engine.pass`` span) runs the
+    finals pass and reads whether the entries moved. Returns (entries,
+    converged, iterations), the first pass counted as iteration 1."""
     done, it = False, 1
     while not done and it < max_iters:
         with trace("rf.engine.pass"):
@@ -153,8 +167,63 @@ def _run_pass(pass_fn, pass_finals, entries0, shift, max_iters: int):
             done = bool((new_entries == entries).all())
         entries = new_entries
         it += 1
+    return entries, done, it
+
+
+def _counts_pass(tables: DfaTables, cls_seq, entries):
+    """K2 from ``entries`` and its verdict, queued (an ``rf.engine.pass``
+    span), then the one read (``rf.device.readback``). Returns (the lanes
+    whose final state is not the next lane's entry, the final state,
+    whether every final state is in range, the final states on the device,
+    the (S,) int32 counts on the host)."""
     with trace("rf.engine.pass"):
-        return pass_fn(entries), done, it
+        finals, counts = chain_pass_counts(tables, cls_seq, entries)
+        lo, hi = torch.aminmax(finals)
+        verdict = torch.stack([(finals[:-1] != entries[1:]).sum(dtype=torch.int32),
+                               finals[-1], lo, hi])
+        out = torch.cat([verdict, counts])
+    with trace("rf.device.readback"):  # the host's one wait
+        out = out.cpu()
+    moved, final, lo, hi = out[:4].tolist()
+    return moved, final, 0 <= lo and hi < tables.num_states, finals, out[4:]
+
+
+def _scan_counts(tables: DfaTables, blocks: torch.Tensor, start: int,
+                 max_iters: int, ov: int) -> FastScanResult:
+    """``dfa_scan_fast``'s counts mode over (NB, B) class blocks. Nothing
+    before the verdict needs a host value: the start state is filled on the
+    device, the table's range is read once per table tensor
+    (``table_in_range``), and ``_counts_pass`` reads the verdict and the
+    counts together, so a pinned upload queued before the call may still be
+    in flight until then. A guess that verifies keeps those counts;
+    otherwise the Jacobi rounds (``_jacobi``, which ``_run_pass`` shares)
+    and the output pass run again. The final state and the counts come back
+    on the host."""
+    cls_seq = blocks.T
+    table_ok = table_in_range(tables.table)
+    entries = torch.full((blocks.shape[0],), start, dtype=torch.int32,
+                         device=blocks.device)
+    start_t = entries[:1]
+
+    def shift(finals):
+        return torch.cat([start_t, finals[:-1]])
+
+    if ov > 0:
+        spec = chain_pass_finals(tables, _overlap_seq(blocks, ov), entries)
+        entries = torch.cat([start_t, spec[1:]])
+    moved, final, finals_ok, finals, counts = _counts_pass(tables, cls_seq,
+                                                           entries)
+    converged, it = moved == 0, 1
+    if not converged:
+        entries, converged, it = _jacobi(
+            lambda e: chain_pass_finals(tables, cls_seq, e), shift(finals),
+            shift, max_iters)
+        _, final, finals_ok, _, counts = _counts_pass(tables, cls_seq, entries)
+    return FastScanResult(
+        final_state=torch.tensor(final, dtype=torch.int32), match_mask=None,
+        states=None, converged=converged, iterations=it, counts=counts,
+        domain_ok=table_ok and finals_ok,
+    )
 
 
 def dfa_scan_fast(
@@ -170,8 +239,9 @@ def dfa_scan_fast(
 
     ``emit``: "full" returns the state and accept bit before every byte,
     "mask" only the accept bits, "counts" only the per-state accept-visit
-    counts. ``classes`` may be uint8, int16 or int32 and lies on the device
-    that runs the scan."""
+    counts (with the final state on the host, ``_scan_counts``).
+    ``classes`` may be uint8, int16 or int32 and lies on the device that
+    runs the scan."""
     if emit not in ("full", "mask", "counts"):
         raise ValueError(f"emit must be full, mask or counts, got {emit!r}")
     l = classes.shape[0]
@@ -180,6 +250,8 @@ def dfa_scan_fast(
     b = l // num_blocks
     dev = classes.device
     blocks = classes.reshape(num_blocks, b)
+    if emit == "counts":
+        return _scan_counts(tables, blocks, start, max_iters, min(overlap, b))
     cls_seq = blocks.T  # (B, NB) columns over block-major storage
     s_dim = tables.num_states
     start_t = torch.tensor([start], dtype=torch.int32, device=dev)
@@ -196,16 +268,6 @@ def dfa_scan_fast(
     pass_finals = lambda e: chain_pass_finals(tables, cls_seq, e)
     table_ok = table_domain_ok(tables)
 
-    if emit == "counts":
-        (finals, counts), converged, iters = _run_pass(
-            lambda e: chain_pass_counts(tables, cls_seq, e),
-            pass_finals, entries0, shift, max_iters,
-        )
-        return FastScanResult(
-            final_state=finals[-1], match_mask=None, states=None,
-            converged=converged, iterations=iters, counts=counts,
-            domain_ok=table_ok & _finals_domain_ok(finals, s_dim),
-        )
     if emit == "mask":
         (finals, acc), converged, iters = _run_pass(
             lambda e: chain_pass_mask(tables, cls_seq, e),

@@ -51,6 +51,7 @@ __all__ = [
     "dfa_chain_route",
     "dfa_fn_combine",
     "dfa_fn_combine_plain",
+    "table_in_range",
 ]
 
 #: Kernel launches since the last reset, one count per kernel.
@@ -219,21 +220,27 @@ def dfa_chain_route(mode: str, num_classes: int, num_states: int,
             "lanes_per_cta": lib.dfa_chain_lanes_per_cta()}
 
 
-_CHECKED_TABLES: dict = {}  # id -> (weak reference, version) of tables in range
+_CHECKED_TABLES: dict = {}  # id -> (weak reference, version, in range)
+
+
+def table_in_range(table) -> bool:
+    """Whether every entry of the (C, S) ``table`` is a state id in [0, S).
+    The check waits for the device, so a table tensor is checked once and
+    again only after an in-place change (its version counter moves)."""
+    key = id(table)
+    seen = _CHECKED_TABLES.get(key)
+    if seen is not None and seen[0]() is table and seen[1] == table._version:
+        return seen[2]
+    ok = not bool(((table < 0) | (table >= table.shape[1])).any())
+    _CHECKED_TABLES[key] = (weakref.ref(table, lambda _: _CHECKED_TABLES.pop(key, None)),
+                            table._version, ok)
+    return ok
 
 
 def _check_table_range(table) -> None:
-    """Raise if ``table`` holds a state id outside [0, S). The check waits
-    for the device, so a table tensor is checked once and again only after
-    an in-place change (its version counter moves)."""
-    seen = _CHECKED_TABLES.get(id(table))
-    if seen is not None and seen[0]() is table and seen[1] == table._version:
-        return
-    if bool(((table < 0) | (table >= table.shape[1])).any()):
+    """Raise if ``table`` holds a state id outside [0, S) (``table_in_range``)."""
+    if not table_in_range(table):
         raise ValueError("table holds state ids outside [0, S): corrupt table")
-    key = id(table)
-    _CHECKED_TABLES[key] = (weakref.ref(table, lambda _: _CHECKED_TABLES.pop(key, None)),
-                            table._version)
 
 
 def dfa_block_fns(table, classes):

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from regex_fpga_tpu import api as japi
+from regex_fpga_tpu.models.regex import CompiledDfa
 from regex_fpga_tpu.ops import build_dfa_tables as jax_build_dfa_tables
 from regex_fpga_tpu.ops import dfa_fast as jf
 from regex_fpga_tpu.ops.pallas_dfa import (
@@ -18,11 +20,14 @@ from regex_fpga_tpu.ops.pallas_dfa import (
     chain_pass_finals_pallas,
     chain_pass_full_pallas,
 )
+from regex_fpga_tpu.utils.config import EngineConfig
+from regex_fpga_tpu_torch import api as tapi
 from regex_fpga_tpu_torch.ops import dfa_fast as tf
 from regex_fpga_tpu_torch.ops import hopper_dfa
 from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
 
 from conftest import random_dfa_table
+from test_torch_kgram import reset_counter_tables, reset_counter_text
 
 
 def both_tables(table, accept):
@@ -215,6 +220,131 @@ def test_corrupt_table_flagged_like_jax(cell, value, emit):
                                    num_blocks=32, emit="counts")
     assert not bool(got_m.domain_ok) and not bool(want_m.domain_ok)
     assert_eq(got_m.counts, want_m.counts)
+
+
+def unsynced_tables(which):
+    """(256, S) tables whose seam guesses fail: the reset counter, a mod-3
+    counter (its reset byte counts like the others) or a parity counter;
+    the last two never synchronize."""
+    if which == "parity":
+        table = np.zeros((256, 2), dtype=np.int32)
+        table[:, 0] = 1
+        return table, np.array([False, True])
+    table, accept = reset_counter_tables()
+    if which == "mod 3":
+        table[ord("b"), :] = table[ord("a"), :]
+    return table, accept
+
+
+def serial_counts(table, accept, stream, start=0):
+    """A serial walk over the bytes with a (256, S) table: (the accept
+    visits before each byte per state, the final state)."""
+    counts = np.zeros(table.shape[1], np.int64)
+    s = start
+    for byte in stream:
+        counts[s] += accept[s]
+        s = table[byte, s]
+    return counts, int(s)
+
+
+@pytest.mark.parametrize("which,max_iters,overlap", [
+    ("reset counter", 16, 64), ("reset counter", 16, 1),
+    ("reset counter", 3, 1), ("mod 3", 16, 64), ("mod 3", 5, 64),
+    ("parity", 16, 64), ("parity", 4, 0),
+])
+def test_queued_counts_failed_guesses_match_jax(which, max_iters, overlap):
+    """Counts mode where the queued verdict rejects the guess: the Jacobi
+    rounds and the output pass after the one read give the JAX package's
+    counts, final state, ``converged`` and ``iterations``, and, converged,
+    a serial walk's counts and final state."""
+    table, accept = unsynced_tables(which)
+    jt, pt = both_tables(table, accept)
+    text = reset_counter_text(3, 16, 65, resets=(0, 3, 4, 10))
+    classes = np.asarray(jt.class_of)[text].astype(np.uint8)
+    kw = dict(num_blocks=16, max_iters=max_iters, overlap=overlap,
+              emit="counts")
+    want = jf.dfa_scan_fast(jt, jnp.asarray(classes), **kw)
+    got = tf.dfa_scan_fast(pt, torch.as_tensor(classes), **kw)
+    assert got.iterations > 1 and bool(got.domain_ok)
+    assert_fast_equal(got, want)
+    assert got.converged == (max_iters == 16)
+    if got.converged:
+        counts, final = serial_counts(table, accept, text)
+        assert_eq(got.counts, counts)
+        assert int(got.final_state) == final
+
+
+@pytest.mark.parametrize("which", ["random", "reset counter", "mod 3",
+                                   "parity"])
+def test_counts_chunks_padded_in_front_match_jax(which, monkeypatch):
+    """scan()'s counts-only chunks, each padded in front to a lane
+    multiple (``lead`` > 0) and handed on from chunk to chunk: equal to
+    the JAX package and to a serial walk, where the guesses hold, where
+    they take Jacobi rounds, and where the automaton never synchronizes
+    (the exact fallback)."""
+    if which == "random":
+        table, accept = random_dfa_table(np.random.default_rng(9), 40, 3)
+    else:
+        table, accept = unsynced_tables(which)
+    dfa = CompiledDfa(table=table, accept=accept, start=0,
+                      dead=39 if which == "random" else -1)
+    cfg = EngineConfig(scan_backend="device", num_blocks=16,
+                       min_block_bytes=4, chunk_bytes=1000, max_iters=8)
+    tm = tapi.DfaMatcher(dfa, cfg, device="cpu")
+    leads, passes = [], []
+    real_ids, real_scan = tm._chunk_ids, tapi.dfa_scan_fast
+
+    def ids_spy(data):
+        out = real_ids(data)
+        leads.append(out[3])
+        return out
+
+    def scan_spy(*args, **kw):
+        res = real_scan(*args, **kw)
+        passes.append((res.iterations, res.converged))
+        return res
+    monkeypatch.setattr(tm, "_chunk_ids", ids_spy)
+    monkeypatch.setattr(tapi, "dfa_scan_fast", scan_spy)
+    text = reset_counter_text(7, 57, 64, resets=range(0, 57, 3))[:3641]
+    if which == "random":
+        text = np.random.default_rng(9).integers(0, 256, 3641).astype(np.uint8)
+    got = tm.scan(text)
+    assert leads and all(leads)  # every chunk padded in front
+    want = japi.DfaMatcher(dfa, cfg).scan(text)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    counts, final = serial_counts(table, accept, text)
+    counts[final] += accept[final]  # the end-of-stream match
+    np.testing.assert_array_equal(got.counts[0], counts)
+    if which == "reset counter":
+        assert max(it for it, _ in passes) >= 2
+    if which in ("mod 3", "parity"):
+        assert not got.metrics.converged
+        assert passes and not any(conv for _, conv in passes)
+
+
+def test_corrupted_table_raises_rather_than_counts():
+    """A table corrupted in place after a clean scan: the range check is
+    read once per table tensor, so its version counter has to bring the
+    check back; the counts mode flags it and the counts route raises."""
+    rng = np.random.default_rng(2)
+    table, accept = random_dfa_table(rng, 24, 3)
+    dfa = CompiledDfa(table=table, accept=accept, start=0, dead=23)
+    cfg = EngineConfig(scan_backend="device", num_blocks=16,
+                       min_block_bytes=4, chunk_bytes=1024)
+    tm = tapi.DfaMatcher(dfa, cfg, device="cpu")
+    text = rng.integers(0, 256, 4096).astype(np.uint8)
+    classes = tm.tables.class_of[torch.as_tensor(text).long()].to(torch.uint8)
+    clean = tf.dfa_scan_fast(tm.tables, classes, num_blocks=16, emit="counts")
+    assert bool(clean.domain_ok)
+    want = tm.scan(text)
+    tm.tables.table[1, 2] = 999
+    bad = tf.dfa_scan_fast(tm.tables, classes, num_blocks=16, emit="counts")
+    assert not bool(bad.domain_ok)
+    with pytest.raises(RuntimeError, match="out-of-domain"):
+        tm.scan(text)
+    tm.tables.table[1, 2] = int(table[int(np.flatnonzero(
+        tm.tables.class_of.numpy() == 1)[0]), 2])
+    np.testing.assert_array_equal(tm.scan(text).counts, want.counts)
 
 
 def test_table_domain_ok_clean_tables():

@@ -469,6 +469,58 @@ def test_count_waits_once_a_chunk(cuda, chunks, monkeypatch):
     assert len(syncs) == chunks, syncs
 
 
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_k2_count_waits_once_a_chunk(cuda, chunks, monkeypatch):
+    """count() of a pinned input on the cl100k tokenizer (1,899 states, so
+    scan()'s K1/K2 chunks on the global-table route) waits on the card once
+    a chunk whose guess verifies: the upload is only queued, and one read
+    brings back the verdict and the counts. A pageable input, whose upload
+    waits, gives the same answer."""
+    import json
+    import warnings
+    from pathlib import Path
+
+    from regex_fpga_tpu_torch import api
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                       / "cl100k-pretok-utf8.json").read_text())
+    cfg = api.EngineConfig(scan_backend="device", chunk_bytes=(64 << 20) // chunks)
+    tok = api.compile_tokenizer(conf["pat"], config=cfg, device=cuda,
+                                **conf["port"]["kwargs"])
+    assert tok._kgram() is None  # above K3's 32 states
+    rng = np.random.default_rng(chunks)
+    lines = [s.encode() for s in (
+        "The quick brown fox jumps over 1234 lazy dogs, it's 99.5% fine!\n",
+        "Caf\u00e9 na\u00efve \u00fcber \u4e2d\u6587 \u0663\u0664 -- "
+        "they'll've done it   twice.\r\n",
+        "\tdef f(x): return x**2  # \u03bb\u0436 \U0001f600\n")]
+    block = b"".join(lines[i] for i in rng.integers(0, len(lines), 1 << 14))
+    pageable = np.frombuffer(block * (-(-(64 << 20) // len(block))),
+                             np.uint8)[:64 << 20]
+    pinned = torch.from_numpy(pageable).pin_memory().numpy()
+    want = tok.count(pageable)  # builds the kernels, reads the table's range
+    passes = []
+    real = api.dfa_scan_fast
+
+    def spy(*args, **kw):
+        res = real(*args, **kw)
+        passes.append(res.iterations)
+        return res
+    monkeypatch.setattr(api, "dfa_scan_fast", spy)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = tok.count(pinned)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in seen if "synchronizing" in str(w.message)]
+    assert got == want
+    assert passes == [1] * chunks
+    assert len(syncs) == chunks, syncs
+
+
 def block_fn_case(rng, kind, c, s, nb, b):
     """A (C, S) table and (NB, B) uint8 class ids of one kind: "random";
     "narrow" (every entry in states 0-2: at most 3 chains after a byte);

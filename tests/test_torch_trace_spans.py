@@ -202,6 +202,49 @@ def test_global_table_span_follows_the_route(table, monkeypatch, tmp_path):
     assert names.count("rf.engine.global_table") == (3 if table == "global" else 0)
 
 
+def test_k2_count_reads_once_a_chunk(monkeypatch, tmp_path):
+    """count() on the cl100k tokenizer (1,899 states: scan()'s K1/K2
+    chunks) records one ``rf.device.readback`` a chunk, and each chunk's
+    ``rf.engine.k1`` span holds its ``rf.engine.pass`` and the
+    ``rf.engine.global_table`` spans of the speculation's and the pass's
+    launches. The route is the monkeypatched one of
+    ``test_global_table_span_follows_the_route``; on the CPU the plain
+    passes stand in for the launches, inside the span the route opens."""
+    from pathlib import Path
+
+    from regex_fpga_tpu_torch.ops import hopper_dfa
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                       / "cl100k-pretok-utf8.json").read_text())
+    cfg = EngineConfig(num_blocks=64, min_block_bytes=16, chunk_bytes=1 << 14,
+                       scan_backend="device")
+    tok = api.compile_tokenizer(conf["pat"], config=cfg, device="cpu",
+                                **conf["port"]["kwargs"])
+    assert tok._kgram() is None
+    want = tok.count(TEXT)
+    finals_pass, counts_pass = hopper_dfa.dfa_chain_plain, hopper_dfa.dfa_chain_counts_plain
+
+    def k1(table, accept, cls_seq, entries, mode):
+        with hopper_dfa._table_span(mode, cls_seq, *table.shape, cls_seq.shape[1]):
+            return finals_pass(table, accept, cls_seq, entries, mode)
+
+    def k2(table, accept, cls_seq, entries, num_streams):
+        with hopper_dfa._table_span("counts", cls_seq, *table.shape, cls_seq.shape[1]):
+            return counts_pass(table, accept, cls_seq, entries, num_streams)
+    monkeypatch.setattr(hopper_dfa, "dfa_chain_route", lambda *a: {"table": "global"})
+    monkeypatch.setattr(hopper_dfa, "dfa_chain_plain", k1)
+    monkeypatch.setattr(hopper_dfa, "dfa_chain_counts_plain", k2)
+    hopper_dfa._table_in_global.cache_clear()
+    try:
+        got, events = _traced(lambda: tok.count(TEXT), tmp_path)
+    finally:
+        hopper_dfa._table_in_global.cache_clear()
+    assert got == want
+    table = ("rf.engine.global_table", ())
+    chunk = ("rf.engine.k1", (UPLOAD, table, ("rf.engine.pass", (table,)), READBACK))
+    assert _tree(events) == (("rf.api.count", (chunk,) * 3),)
+
+
 # ---------------------------------------------------------------- the card
 
 
