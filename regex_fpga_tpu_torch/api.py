@@ -315,11 +315,23 @@ class _FallbackResult(NamedTuple):
     iterations: int = 0
 
 
+class _Chunk(NamedTuple):
+    """One chunk's answer from ``DfaMatcher._scan_chunk``, by ``emit``."""
+
+    match_mask: torch.Tensor | None  # (w,) bool on the device (mask, full)
+    states: torch.Tensor | None      # (w,) int32 on the device (full)
+    counts: np.ndarray | None        # (S,) int64 (counts)
+    final_state: int
+    iterations: int
+    converged: bool
+
+
 #: a ragged batch whose rows average at most this many bytes uploads them as
 #: one host concatenation; longer rows are copied one by one. Measured in
-#: alternating pairs by torch_upload_ab.py on an NVIDIA H100 80GB HBM3
-#: (700 W): over 16 MiB the concatenation won all 12 pairs at 64 KiB a row
-#: and the copies won 11 of 12 at 256 KiB; the crossover lies between
+#: alternating pairs on an NVIDIA H100 80GB HBM3 (700 W; the ragged batch's
+#: upload in CHANGES.md): over 16 MiB the concatenation won all 12 pairs at
+#: 64 KiB a row and the copies won 11 of 12 at 256 KiB; the crossover lies
+#: between
 _CONCAT_ROW_BYTES = 1 << 16
 
 
@@ -400,14 +412,23 @@ class DfaMatcher:
             self._stall_tables = stall_extend(self.tables)
         return self._stall_tables
 
-    def _chunk_ids(self, data: torch.Tensor):
-        """Class ids of one chunk of raw device bytes, (w,) or (N, w), for
-        the chain engines at ``_lanes(w)`` lanes. Returns (tables, ids,
-        lanes, lead). When the lanes divide w, the ids are the mapped bytes
-        (uint8) and the tables the matcher's; otherwise each row is padded
-        AT THE FRONT with ``lead`` stall ids up to a lane multiple, and the
-        tables are the stall-extended ones (the stall id is C, int16 when
-        C = 256).
+    def _padded(self, w: int) -> tuple[int, int]:
+        """(lanes, padded width) of a chunk of ``w`` bytes (or k-gram
+        steps): ``_lanes(w)``, and ``w`` rounded up to a multiple of it."""
+        nb = self._lanes(w)
+        return nb, w + -w % nb
+
+    def _chunk_ids(self, data: torch.Tensor, lens=None, width: int = 0):
+        """Class ids of one chunk of raw device bytes for the chain engines
+        at ``_lanes(w)`` lanes. ``data`` is (w,) or (N, w); for a ragged
+        batch it holds the rows' bytes back to back, ``lens`` (N,) the bytes
+        of each row and ``width`` the chunk's w. Returns (tables, ids,
+        lanes, lead). Where the lanes divide w and the rows are whole, the
+        ids are the mapped bytes (uint8) and the tables the matcher's;
+        otherwise each row is padded AT THE FRONT with ``lead`` stall ids
+        (one count, or one a row with ``lens``) to the width ``_padded(w)``
+        gives, and the tables are the stall-extended ones (the stall id is
+        C, int16 when C = 256).
 
         Front padding keeps the seam speculation right: every pad step holds
         the chunk's entry state, which is also what each lane's replay
@@ -418,18 +439,24 @@ class DfaMatcher:
         past ``max_iters`` the exact fallback. The caller drops the first
         ``lead`` positions of a mask or states and subtracts ``lead`` visits
         of the entry state from counts; the final state is unchanged."""
-        w = data.shape[-1]
-        nb = self._lanes(w)
-        lead = -w % nb
+        w = data.shape[-1] if lens is None else width
+        nb, w_pad = self._padded(w)
+        lead = w_pad - (w if lens is None else lens)
         cls = torch.index_select(self._class_lut, 0,
                                  data.reshape(-1).int()).reshape(data.shape)
-        if not lead:
+        if lens is None and not lead:
             return self.tables, cls, nb, 0
         stall = self.tables.num_classes
-        ids = torch.full((*data.shape[:-1], w + lead), stall,
+        rows = data.shape[:-1] if lens is None else (len(lens),)
+        ids = torch.full((*rows, w_pad), stall,
                          dtype=torch.uint8 if stall < 256 else torch.int16,
                          device=self.device)
-        ids[..., lead:] = cls
+        if lens is None:
+            ids[..., lead:] = cls
+        else:
+            real = (torch.arange(w_pad, device=self.device)
+                    >= torch.as_tensor(lead, device=self.device)[:, None])
+            ids.masked_scatter_(real, cls.to(ids.dtype))
         return self._stalled_tables(), ids, nb, lead
 
     # --------------------------------------------------------- host backend
@@ -478,96 +505,78 @@ class DfaMatcher:
 
     def _scan_host(self, streams, collect_positions: bool):
         """``scan`` on the host walker: counts (n, S), positions (with
-        ``collect_positions``: the walk's match mask), the end-of-stream
-        match included."""
+        ``collect_positions``: the walk's match mask) and final states, the
+        end-of-stream match not included."""
         positions: list = []
-        if collect_positions:
-            counts = np.zeros((len(streams), self.num_states), dtype=np.int64)
-            finals = np.zeros(len(streams), dtype=np.int64)
-            tab, cls, acc = self._host_tables()
-            for i, stream in enumerate(streams):
-                counts[i], mask, finals[i] = native.dfa_scan(
-                    tab, cls, acc, stream, start=self.start)
-                positions.append(np.nonzero(mask)[0])
-        else:
+        if not collect_positions:
             counts, finals = self._host_scan_counts(streams)
-        for i in self._final_matches(streams, finals):
-            counts[i, finals[i]] += 1
-            if collect_positions:
-                positions[i] = np.concatenate([positions[i],
-                                               [len(streams[i])]])
-        return counts, positions
+            return counts, finals, positions
+        counts = np.zeros((len(streams), self.num_states), dtype=np.int64)
+        finals = np.zeros(len(streams), dtype=np.int64)
+        tab, cls, acc = self._host_tables()
+        for i, stream in enumerate(streams):
+            counts[i], mask, finals[i] = native.dfa_scan(
+                tab, cls, acc, stream, start=self.start)
+            positions.append(np.nonzero(mask)[0])
+        return counts, finals, positions
 
-    def _final_matches(self, streams, finals) -> np.ndarray:
+    def _final_matches(self, streams, finals) -> list[int]:
         """The streams whose end-of-stream match counts: non-empty, ending
         in a state that accepts at the end (with ``include_final_match``)."""
         if not self.include_final_match:
-            return np.zeros(0, np.int64)
-        lens = np.fromiter((len(s_) for s_ in streams), np.int64, len(streams))
-        return np.nonzero((lens > 0) & self._accept_eof[finals])[0]
+            return []
+        return [i for i, (s_, f) in enumerate(zip(streams, finals))
+                if len(s_) and self._accept_eof[f]]
 
     # ---------------------------------------------------------------- scan
 
     def scan(self, data, collect_positions: bool = False) -> ScanReport:
         streams = _as_streams(data)
-        counts = np.zeros((len(streams), self.num_states), dtype=np.int64)
+        n_bytes = sum(len(s_) for s_ in streams)
         positions: list = []
-        iters = 0
-        converged = True
-        if len(streams) and self._host_backend(
-                len(streams), sum(len(s_) for s_ in streams)):
-            with Timer() as t:
-                counts, positions = self._scan_host(streams, collect_positions)
-            engine = "dfa-host-native"
-        elif (not collect_positions and len(streams) > 1
-                and len({len(s_) for s_ in streams}) == 1
-                and len(streams[0]) > 0):
-            # equal-length batch: all streams as extra chain lanes in one pass
-            with Timer() as t:
-                c, iters, converged, cur = self._scan_batch_counts(
-                    np.stack(streams)
-                )
-                counts[:] = c
-                for i in range(len(streams)):
-                    if self.include_final_match and self._accept_eof[cur[i]]:
-                        counts[i, cur[i]] += 1
-            engine = "dfa-fast-batch"
-        elif (not collect_positions and len(streams) > 1
-                and any(len(s_) for s_ in streams)):
-            # ragged batch: streams pad at the front with the stall class
-            with Timer() as t:
-                c, iters, converged, cur = self._scan_ragged_counts(streams)
-                counts[:] = c
+        iters, converged = 0, True
+        on_host = bool(streams) and self._host_backend(len(streams), n_bytes)
+        batch = (not collect_positions and len(streams) > 1
+                 and any(len(s_) for s_ in streams))
+        with Timer() as t:
+            if on_host:
+                counts, finals, positions = self._scan_host(streams,
+                                                            collect_positions)
+                engine = "dfa-host-native"
+            elif batch and len({len(s_) for s_ in streams}) == 1:
+                # equal-length batch: all streams as extra chain lanes in one pass
+                counts, iters, converged, finals = self._scan_batch_counts(
+                    np.stack(streams))
+                engine = "dfa-fast-batch"
+            elif batch:
+                # ragged batch: streams pad at the front with the stall class
+                counts, iters, converged, finals = self._scan_ragged_counts(
+                    streams)
+                engine = "dfa-fast-batch-ragged"
+            else:
+                counts = np.zeros((len(streams), self.num_states), np.int64)
+                finals = np.zeros(len(streams), np.int64)
                 for i, stream in enumerate(streams):
-                    if (self.include_final_match and len(stream)
-                            and self._accept_eof[cur[i]]):
-                        counts[i, cur[i]] += 1
-            engine = "dfa-fast-batch-ragged"
-        else:
-            with Timer() as t:
-                for i, stream in enumerate(streams):
-                    pos = None
-                    if not collect_positions:
-                        # counts-only: the histogram is computed on the
-                        # device, no per-position array leaves it
-                        c, it, conv = self._scan_stream_counts(stream)
-                        counts[i] = c
-                    else:
+                    if collect_positions:
                         c, mask, it, conv = self._scan_stream(stream)
                         counts[i] = c.cpu().numpy()
-                        pos = torch.nonzero(mask).reshape(-1).cpu().numpy()
-                    iters = max(iters, it)
-                    converged &= conv
-                    if (self.include_final_match and len(stream)
-                            and self._accept_eof[self._last_final]):
-                        counts[i, self._last_final] += 1
-                        if collect_positions:
-                            pos = np.concatenate([pos, [len(stream)]])
-                    positions.append(pos)
-            engine = "dfa-fast"
+                        positions.append(
+                            torch.nonzero(mask).reshape(-1).cpu().numpy())
+                    else:
+                        # counts-only: the histogram is computed on the
+                        # device, no per-position array leaves it
+                        counts[i], it, conv = self._scan_stream_counts(stream)
+                    finals[i] = self._last_final
+                    iters, converged = max(iters, it), converged and conv
+                engine = "dfa-fast"
+            for i in self._final_matches(streams, finals):
+                counts[i, finals[i]] += 1
+                if collect_positions:
+                    positions[i] = np.concatenate([positions[i],
+                                                   [len(streams[i])]])
         m = RunMetrics(
             engine=engine,
-            bytes_scanned=sum(len(s_) for s_ in streams),
+            bytes_scanned=n_bytes,
             streams=len(streams),
             matches=int(counts.sum()),
             wall_seconds=t.seconds,
@@ -634,11 +643,8 @@ class DfaMatcher:
                     nb = self._lanes(max(steps, 1))
                     main_len = (steps // nb) * nb * kg.k
                     if main_len:
-                        # the raw text goes to the k-gram kernel, which maps
-                        # it to classes itself; a pinned chunk's copy is
-                        # only queued, and the scan's first read (which
-                        # brings back the total and the final state) waits
-                        # for it
+                        # the raw text goes to K3, which maps it itself; a
+                        # pinned chunk's copy is only queued, as in _scan_chunk
                         with trace("rf.engine.kgram"):
                             with self._until_read():
                                 res = dfa_scan_kgram(
@@ -653,9 +659,9 @@ class DfaMatcher:
                             stream_total += int(res.total)
                             cur = int(res.final_state)
                     if main_len < len(chunk):
-                        c, cur, _, _ = self._counts_chunk(chunk[main_len:],
-                                                          cur)
-                        stream_total += int(c.sum())
+                        ch = self._scan_chunk(chunk[main_len:], cur, "counts")
+                        stream_total += int(ch.counts.sum())
+                        cur = ch.final_state
                 if diverged:  # non-synchronizing automaton: exact fallback
                     # over the whole stream (partial totals discarded)
                     total += int(self.scan([stream]).counts.sum())
@@ -667,6 +673,92 @@ class DfaMatcher:
 
     # ------------------------------------------------------ chunked engines
 
+    def _check_domain(self, ok: bool) -> None:
+        if not ok:
+            raise RuntimeError("device DFA pass produced out-of-domain state "
+                               "ids: corrupt table")
+
+    def _unpad(self, counts: torch.Tensor, cur, lead) -> np.ndarray:
+        """A padded chunk's (N, S) or (S,) int32 counts, on the host, as
+        (N, S) int64 without the pad: each row's ``lead`` stall steps (one
+        count, or one a row) sat in its entry state ``cur`` (N,)."""
+        counts = counts.numpy().astype(np.int64).reshape(len(cur), -1)
+        if np.count_nonzero(lead):
+            counts[np.arange(len(cur)), cur] -= lead * self._host_tables()[2][cur]
+        return counts
+
+    def _scan_chunk(self, raw: np.ndarray, cur: int, emit: str,
+                    reverse: bool = False) -> _Chunk:
+        """One chunk of a stream from state ``cur`` on the k=1 engine in
+        ``emit`` mode (``dfa_scan_fast``), or on the exact path where it
+        does not converge. A pinned chunk's copy is only queued: the scan's
+        one read waits for it. ``reverse`` scans the chunk's bytes back to
+        front: it is uploaded as it lies and flipped on the device. The
+        mask and states stay on the device; the pad's positions are dropped
+        from them, and its visits of the entry state from the counts."""
+        with trace("rf.engine.k1"):
+            with self._until_read():
+                data = self._upload(raw, non_blocking=True)
+                if reverse:
+                    data = torch.flip(data, (0,))
+                tables, ids, nb, lead = self._chunk_ids(data)
+                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
+                                    max_iters=self.config.max_iters, emit=emit)
+            self._check_domain(res.domain_ok)
+            if res.converged:
+                return _Chunk(
+                    None if res.match_mask is None else res.match_mask[lead:],
+                    None if res.states is None else res.states[lead:],
+                    (None if res.counts is None else
+                     self._unpad(res.counts, [cur], lead)[0]),
+                    int(res.final_state), res.iterations, True)
+            fb = self._exact_fallback(raw[::-1] if reverse else raw, cur)
+            counts = None
+            if emit == "counts":
+                with trace("rf.device.readback"):
+                    counts = fb.counts.cpu().numpy().astype(np.int64)
+            return _Chunk(fb.match_mask, fb.states, counts, fb.final_state,
+                          fb.iterations, False)
+
+    def _scan_batch_chunk(self, chunk, rows, cur: np.ndarray):
+        """One chunk of a batch on ``dfa_scan_fast_multi`` from the rows'
+        entry states ``cur`` (N,) int32, or row by row on the exact path
+        where it does not converge: ``chunk`` is ``_chunk_ids``'s answer for
+        the rows' device bytes, ``rows`` their bytes on the host. Returns
+        (counts (N, S) int64, final states (N,) int32, iterations,
+        converged)."""
+        tables, ids, nb, lead = chunk
+        res = dfa_scan_fast_multi(
+            tables, ids, num_blocks=nb,
+            starts=torch.as_tensor(cur, device=self.device),
+            max_iters=self.config.max_iters, emit="counts",
+        )
+        self._check_domain(res.domain_ok)
+        if res.converged:
+            return (self._unpad(res.counts, cur, lead),
+                    res.final_states.numpy().astype(np.int32), res.iterations,
+                    True)
+        counts = np.zeros((len(rows), self.num_states), dtype=np.int64)
+        cur = cur.copy()
+        for i, row in enumerate(rows):
+            if len(row):
+                fb = self._exact_fallback(row, int(cur[i]))
+                counts[i] = fb.counts.cpu().numpy()
+                cur[i] = fb.final_state
+        return counts, cur, res.iterations, False
+
+    def _chunks(self, stream: np.ndarray, emit: str, start=None):
+        """Yields (offset, ``_Chunk``) for each chunk of ``stream`` in turn
+        (``_scan_chunk``), each entered in the state the last one ended in;
+        at the end the state after the stream is in ``self._last_final``."""
+        cur = self.start if start is None else start
+        cb = self.config.chunk_bytes
+        for off in range(0, len(stream), cb):
+            ch = self._scan_chunk(stream[off : off + cb], cur, emit)
+            yield off, ch
+            cur = ch.final_state
+        self._last_final = cur
+
     def _scan_stream(self, stream: np.ndarray):
         """Returns (counts (S,) int64, match_mask (L,) bool, iterations,
         converged), both tensors on the device: the per-state counts and the
@@ -676,58 +768,20 @@ class DfaMatcher:
                              device=self.device)
         mask = torch.empty(len(stream), dtype=torch.bool, device=self.device)
         iters, converged = 0, True
-        cb = self.config.chunk_bytes
-        cur = self.start
-        for off in range(0, len(stream), cb):
-            raw = stream[off : off + cb]
-            with trace("rf.engine.k1"):
-                tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
-                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                    max_iters=self.config.max_iters)
-                if not bool(res.domain_ok):
-                    raise RuntimeError(
-                        "device DFA pass produced out-of-domain state ids: "
-                        "corrupt table"
-                    )
-                if not res.converged:
-                    converged = False
-                    res = self._exact_fallback(raw, cur)
-                    counts += res.counts
-                    chunk_mask = res.match_mask
-                else:
-                    chunk_mask = res.match_mask[lead:]
-                    counts += torch.bincount(
-                        res.states[lead:][chunk_mask].long(),
-                        minlength=self.num_states)
-                mask[off : off + len(raw)] = chunk_mask
-                cur = int(res.final_state)
-            iters = max(iters, res.iterations)
-        self._last_final = cur
+        for off, ch in self._chunks(stream, "full"):
+            mask[off : off + len(ch.match_mask)] = ch.match_mask
+            counts += torch.bincount(ch.states[ch.match_mask].long(),
+                                     minlength=self.num_states)
+            iters, converged = max(iters, ch.iterations), converged and ch.converged
         return counts, mask, iters, converged
 
     def _mask_chunk_device(self, raw_chunk: np.ndarray, cur: int,
                            reverse: bool = False):
         """One chunk's (match mask, final state) via the k=1 mask scan, or
         via the exact path when the scan does not converge; the mask stays
-        on the device. ``reverse`` scans the chunk's bytes back to front:
-        the chunk is uploaded as it lies and flipped on the device."""
-        with trace("rf.engine.k1"):
-            data = self._upload(raw_chunk)
-            if reverse:
-                data = torch.flip(data, (0,))
-            tables, ids, nb, lead = self._chunk_ids(data)
-            res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                max_iters=self.config.max_iters, emit="mask")
-            if not bool(res.domain_ok):
-                raise RuntimeError(
-                    "device DFA pass produced out-of-domain state ids: "
-                    "corrupt table"
-                )
-            if not res.converged:
-                res = self._exact_fallback(
-                    raw_chunk[::-1] if reverse else raw_chunk, cur)
-                return res.match_mask, int(res.final_state)
-            return res.match_mask[lead:], int(res.final_state)
+        on the device. ``reverse`` scans the chunk's bytes back to front."""
+        ch = self._scan_chunk(raw_chunk, cur, "mask", reverse)
+        return ch.match_mask, ch.final_state
 
     def _scan_match_positions(self, stream: np.ndarray,
                               reverse: bool = False) -> np.ndarray:
@@ -770,36 +824,19 @@ class DfaMatcher:
         int64 offsets, int32 states)."""
         pos_out = [np.empty(0, np.int64)]
         st_out = [np.empty(0, np.int32)]
-        cur = self.start
-        cb = self.config.chunk_bytes
-        for off in range(0, len(stream), cb):
-            raw = stream[off : off + cb]
-            with trace("rf.engine.k1"):
-                tables, ids, nb, lead = self._chunk_ids(self._upload(raw))
-                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                    max_iters=self.config.max_iters,
-                                    emit="full")
-                if not bool(res.domain_ok):
-                    raise RuntimeError(
-                        "device DFA pass produced out-of-domain state ids: "
-                        "corrupt table"
-                    )
-                if not res.converged:
-                    res = self._exact_fallback(raw, cur)
-                    lead = 0
-                pos = torch.nonzero(res.match_mask[lead:]).reshape(-1)
-                st_out.append(torch.index_select(res.states[lead:], 0, pos)
-                              .cpu().numpy().astype(np.int32, copy=False))
-                pos_out.append(pos.cpu().numpy() + off)
-                cur = int(res.final_state)
-        self._last_final = cur
+        for off, ch in self._chunks(stream, "full"):
+            pos = torch.nonzero(ch.match_mask).reshape(-1)
+            st_out.append(torch.index_select(ch.states, 0, pos)
+                          .cpu().numpy().astype(np.int32, copy=False))
+            pos_out.append(pos.cpu().numpy() + off)
         return np.concatenate(pos_out), np.concatenate(st_out)
 
     def _scan_batch_counts(self, arr: np.ndarray):
         """Chunked batch scan of (N, L) equal-length streams via
-        ``dfa_scan_fast_multi`` (per-stream histograms on the device), each
-        row's chunk padded as ``_chunk_ids`` pads it. Returns (counts
-        (N, S), iterations, converged, final states (N,))."""
+        ``dfa_scan_fast_multi`` (per-stream histograms on the device), the
+        whole array uploaded once and each row's chunk padded as
+        ``_chunk_ids`` pads it. Returns (counts (N, S), iterations,
+        converged, final states (N,))."""
         n, l = arr.shape
         data = self._upload(arr)
         counts = np.zeros((n, self.num_states), dtype=np.int64)
@@ -807,67 +844,39 @@ class DfaMatcher:
         iters, converged = 0, True
         cb = self.config.chunk_bytes
         for off in range(0, l, cb):
-            tables, ids, nb, lead = self._chunk_ids(data[:, off : off + cb])
-            res = dfa_scan_fast_multi(
-                tables, ids, num_blocks=nb,
-                starts=torch.as_tensor(cur, device=self.device),
-                max_iters=self.config.max_iters, emit="counts",
-            )
-            if not res.converged:
-                converged = False
-                # exact per-stream fallback for this chunk only
-                for i in range(n):
-                    r = self._exact_fallback(arr[i, off : off + cb], int(cur[i]))
-                    counts[i] += r.counts.cpu().numpy()
-                    cur[i] = r.final_state
-            else:
-                c = res.counts.cpu().numpy().astype(np.int64)
-                if lead:  # each row's pad steps visited its entry state
-                    c[np.arange(n), cur] -= lead * self._host_tables()[2][cur]
-                counts += c
-                cur = res.final_states.cpu().numpy().astype(np.int32)
-            iters = max(iters, res.iterations)
+            c, cur, it, conv = self._scan_batch_chunk(
+                self._chunk_ids(data[:, off : off + cb]),
+                arr[:, off : off + cb], cur)
+            counts += c
+            iters, converged = max(iters, it), converged and conv
         return counts, iters, converged, cur
 
     def _scan_ragged_counts(self, streams):
-        """Variable-length batch in one multi-lane chain: streams pad AT THE
-        FRONT to a common length with the STALL class (identity table row,
-        ``stall_extend``) and run through ``dfa_scan_fast_multi`` with
-        per-lane pinned entries, as the equal-length path does.
-
-        Front padding keeps the seam speculation right: during the pad
-        steps a lane sits in its stream's entry state, which is what the
-        replay from the start predicts. The overcount is exactly
-        ``pad_steps`` visits of the entry state, subtracted afterwards.
+        """Variable-length batch in one multi-lane chain: each chunk of
+        ``_padded(w)``'s width takes every row's next bytes, padded AT THE
+        FRONT with the stall class by ``_chunk_ids``, and runs through
+        ``dfa_scan_fast_multi`` with per-lane pinned entries, as the
+        equal-length path does. The overcount of the pad steps, exactly
+        their visits of each row's entry state, is taken off afterwards.
         Returns (counts (N, S) int64, iters, converged, finals (N,))."""
-        stall_tables = self._stalled_tables()
-        stall_id = self.tables.num_classes
-        # the stall id is C, which needs more than a byte when C = 256
-        dtype = torch.uint8 if stall_id < 256 else torch.int32
         n = len(streams)
         lens = np.array([len(s_) for s_ in streams], dtype=np.int64)
         lmax = int(lens.max())
         counts = np.zeros((n, self.num_states), dtype=np.int64)
         cur = np.full(n, self.start, dtype=np.int32)
         iters, converged = 0, True
-        accept_np = self.tables.accept.cpu().numpy()
         off = 0
         cb = self.config.chunk_bytes
         while off < lmax:
             w = min(cb, lmax - off)
-            nb = shrink_blocks(w, self.config.num_blocks,
-                               self.config.min_block_bytes, divisible=False)
-            w_pad = -(-w // nb) * nb  # round up to a block multiple
-            real = np.clip(lens - off, 0, w_pad).astype(np.int64)
-            entries = cur.copy()  # pre-chunk states (stall correction)
-            # each stream slice sits at its row's end and the leading stalls
-            # carry the entry state. The slices go to one device array,
-            # which is mapped and scattered into the rows at once, in row
-            # order: short rows as one host concatenation (a copy per row
-            # would cost more than the memcpy), long ones a copy each
-            rows = [s_[off : off + r] for s_, r in zip(streams, real) if r]
+            w_pad = self._padded(w)[1]
+            real = np.clip(lens - off, 0, w_pad)
+            # the rows' slices go to one device array in row order: short
+            # rows as one host concatenation (a copy per row would cost more
+            # than the memcpy), long ones a copy each
+            rows = [s_[off : off + r] for s_, r in zip(streams, real)]
             total = int(real.sum())
-            if total <= _CONCAT_ROW_BYTES * len(rows):
+            if total <= _CONCAT_ROW_BYTES * np.count_nonzero(real):
                 raw = self._upload(np.concatenate(rows))
             else:
                 raw = torch.empty(total, dtype=torch.uint8,
@@ -879,35 +888,10 @@ class DfaMatcher:
                     for row in rows:
                         raw[at : at + len(row)].copy_(torch.from_numpy(row))
                         at += len(row)
-            lead = torch.as_tensor(w_pad - real, device=self.device)
-            real_pos = (torch.arange(w_pad, device=self.device)
-                        >= lead[:, None])
-            chunk = torch.full((n, w_pad), stall_id, dtype=dtype,
-                               device=self.device)
-            chunk.masked_scatter_(
-                real_pos,
-                torch.index_select(self._class_lut, 0, raw.int()).to(dtype))
-            res = dfa_scan_fast_multi(
-                stall_tables, chunk, num_blocks=nb,
-                starts=torch.as_tensor(cur, device=self.device),
-                max_iters=self.config.max_iters, emit="counts",
-            )
-            if not res.converged:
-                converged = False
-                for i, s_ in enumerate(streams):
-                    if real[i] == 0:
-                        continue
-                    r = self._exact_fallback(s_[off : off + real[i]], int(cur[i]))
-                    counts[i] += r.counts.cpu().numpy()
-                    cur[i] = r.final_state
-            else:
-                c = res.counts.cpu().numpy().astype(np.int64)
-                # exact stall correction: the entry state was counted once
-                # per leading padded step
-                c[np.arange(n), entries] -= (w_pad - real) * accept_np[entries]
-                counts += c
-                cur = res.final_states.cpu().numpy().astype(np.int32)
-            iters = max(iters, res.iterations)
+            c, cur, it, conv = self._scan_batch_chunk(
+                self._chunk_ids(raw, lens=real, width=w), rows, cur)
+            counts += c
+            iters, converged = max(iters, it), converged and conv
             off += w_pad
         return counts, iters, converged, cur
 
@@ -915,45 +899,12 @@ class DfaMatcher:
         """Counts-only chunked scan (the histogram stays on the device).
         Returns (counts (S,), iterations, converged) and sets
         ``self._last_final``."""
-        cur = self.start if start is None else start
         counts = np.zeros(self.num_states, dtype=np.int64)
         iters, converged = 0, True
-        cb = self.config.chunk_bytes
-        for off in range(0, len(stream), cb):
-            c, cur, it, conv = self._counts_chunk(stream[off : off + cb], cur)
-            counts += c
-            iters = max(iters, it)
-            converged &= conv
-        self._last_final = cur
+        for _, ch in self._chunks(stream, "counts", start):
+            counts += ch.counts
+            iters, converged = max(iters, ch.iterations), converged and ch.converged
         return counts, iters, converged
-
-    def _counts_chunk(self, raw: np.ndarray, cur: int):
-        """One chunk's (counts (S,) int64, final state, iterations,
-        converged) from state ``cur`` on the k=1 counts engine, or on the
-        exact path when it does not converge. A pinned chunk's copy is only
-        queued: the scan's one read, which brings back its verdict and
-        counts, waits for it."""
-        with trace("rf.engine.k1"):
-            with self._until_read():
-                tables, ids, nb, lead = self._chunk_ids(
-                    self._upload(raw, non_blocking=True))
-                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                    max_iters=self.config.max_iters,
-                                    emit="counts")
-            if not res.domain_ok:
-                raise RuntimeError(
-                    "device DFA pass produced out-of-domain state ids: "
-                    "corrupt table"
-                )
-            if not res.converged:
-                fb = self._exact_fallback(raw, cur)
-                with trace("rf.device.readback"):
-                    counts = fb.counts.cpu().numpy().astype(np.int64)
-                return counts, int(fb.final_state), fb.iterations, False
-            counts = res.counts.numpy().astype(np.int64)
-            if lead:  # the pad steps visited the entry state
-                counts[cur] -= lead * self._host_tables()[2][cur]
-            return counts, int(res.final_state), res.iterations, True
 
     def _exact_fallback(self, chunk_bytes: np.ndarray, start) -> _FallbackResult:
         """Exact path for automata the fast engine does not settle, on the

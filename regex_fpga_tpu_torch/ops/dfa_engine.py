@@ -140,7 +140,7 @@ def dfa_scan_blocked(
     group = max(1, FN_GROUP_BYTES // (4 * s))
     counts = torch.zeros(s, dtype=torch.int64, device=stream.device)
     masks, states = [], []
-    cur = torch.tensor([start], dtype=torch.int32, device=stream.device)
+    cur = torch.full((1,), int(start), dtype=torch.int32, device=stream.device)
     for g0 in range(0, nb, group):
         cls_g = classes[g0 : g0 + group]
         entry, cur = dfa_fn_combine(block_transition_functions(tables, cls_g),

@@ -5,25 +5,36 @@ The counterpart of ``regex_fpga_tpu/ops/dfa_fast.py``. A stream is cut into
 pass runs on a Hopper kernel (``hopper_dfa``): the table is read directly,
 where the TPU engines looked it up with a one-hot matrix product.
 
-Block seams: each lane first replays the last ``overlap`` bytes of the
-previous block from the start state. Real automata synchronize within that
-window, so the guessed entries are right, and one induction check
-(``finals[l-1] == entries[l]``, lane 0 anchored) proves it: one output pass
-then suffices. Otherwise a Jacobi fixpoint iterates the entries (a host loop
-on a device flag) and the output pass runs again from the fixpoint; the
-result is exact whenever ``converged`` is True. Automata that never
-synchronize (parity counters) are reported as not converged, and callers
-fall back to ``dfa_engine``.
+Block seams take one protocol in every mode here and in the k-gram engine
+(``ops/kgram.py``), in three helpers:
 
-The counts mode waits on the host once when the guess verifies: the
-speculation, the counting pass and its verdict are queued, and one copy
-brings back the verdict with the counts (``_scan_counts``).
+- ``_speculate``: each lane replays the last ``overlap`` steps of its own
+  block from its stream's start, in place (a strided view, no copy); its
+  final state is the next lane's guessed entry. Real automata synchronize
+  within that window.
+- ``_round``: a pass from the entries and its verdict are queued, and one
+  ``.cpu()`` reads the verdict: the lanes whose final state is not the next
+  lane's entry, each stream's final state, the range of the states, and the
+  mode's small answer (counts, K3's total). With no such lane the entries
+  are proved by induction (``finals[l-1] == entries[l]``, each stream's
+  first lane pinned to its start) and the pass's outputs stand.
+- ``_jacobi``: otherwise the entries iterate to a fixpoint, a round each;
+  the k=1 engines run their finals passes there and the output pass once
+  more from the fixpoint. The result is exact whenever ``converged`` is
+  True. Automata that never synchronize (parity counters) are reported as
+  not converged, and callers fall back to ``dfa_engine``.
+
+Nothing before the read needs a host value: the start states are filled on
+the device and the table's range is read once per table tensor
+(``table_in_range``), so a pinned upload queued before the call may still
+be in flight until then. Masks and states stay on the device.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils.profiling import trace
@@ -65,39 +76,37 @@ def mask_positions(mask: torch.Tensor, cap: int):
 
 
 class FastScanResult(NamedTuple):
-    final_state: torch.Tensor            # () int32
+    final_state: torch.Tensor            # () int32, on the host
     match_mask: torch.Tensor | None      # (L,) bool: accept fired before byte i
     states: torch.Tensor | None          # (L,) int32: state before byte i
     converged: bool
     iterations: int
-    counts: torch.Tensor | None = None   # (S,) per-state counts (counts mode)
+    counts: torch.Tensor | None = None   # (S,) int32 per-state counts (counts mode), on the host
     #: False means the pass produced out-of-range state ids (a corrupt
     #: table): the results must be discarded, not trusted.
-    domain_ok: torch.Tensor | bool = True
+    domain_ok: bool = True
 
 
 class MultiScanResult(NamedTuple):
-    final_states: torch.Tensor           # (N,) int32: state after each stream
-    counts: torch.Tensor | None          # (N, S) int32 per-stream accept counts
+    final_states: torch.Tensor           # (N,) int32: state after each stream, on the host
+    counts: torch.Tensor | None          # (N, S) int32 per-stream accept counts, on the host
     match_mask: torch.Tensor | None      # (N, L) bool (full mode)
     states: torch.Tensor | None          # (N, L) int32 (full mode)
     converged: bool
     iterations: int
-    domain_ok: torch.Tensor | bool = True
+    domain_ok: bool = True
 
 
 def table_domain_ok(tables: DfaTables) -> torch.Tensor:
     """Every transition target is a valid state id. Returns a () bool.
 
-    The JAX guard also checks that the table survives its one-hot matmul
-    dtype losslessly; the kernels here read int32 directly, so the range is
-    the whole condition."""
+    The twin of the JAX package's public guard, which also checks that the
+    table survives its one-hot matmul dtype losslessly; the kernels here
+    read int32 directly, so the range is the whole condition. No engine
+    calls it: they read the range once per table tensor
+    (``hopper_dfa.table_in_range``)."""
     t = tables.table
     return ((t >= 0) & (t < tables.num_states)).all()
-
-
-def _finals_domain_ok(x: torch.Tensor, s: int) -> torch.Tensor:
-    return ((x >= 0) & (x < s)).all()
 
 
 def chain_pass_finals(tables: DfaTables, cls_seq, entries):
@@ -130,100 +139,136 @@ def _chain_pass_counts_multi(tables: DfaTables, cls_seq, entries, n: int):
                             num_streams=n)
 
 
-def _overlap_seq(blocks: torch.Tensor, ov: int) -> torch.Tensor:
-    """(ov, NB) columns: lane l replays the last ``ov`` classes of block
-    l-1. Lane 0's rows are junk; its entry is pinned by the caller."""
+class _Lanes(NamedTuple):
+    """The chain lanes of a scan, stream-major: ``start`` (NB,) int32 on
+    the device, the start state of each lane's stream, and ``per_stream``
+    lanes a stream."""
+
+    start: torch.Tensor
+    per_stream: int
+
+    def shift(self, finals: torch.Tensor) -> torch.Tensor:
+        """Each lane's entry: the final state of the lane before it, each
+        stream's first lane pinned to its start."""
+        entries = torch.cat([self.start[:1], finals[:-1]])
+        if self.per_stream < entries.shape[0]:
+            entries[::self.per_stream] = self.start[::self.per_stream]
+        return entries
+
+
+class _Verdict(NamedTuple):
+    """One round's read, on the host (numpy views of the one copy: no
+    tensor op stands between the read and the caller)."""
+
+    moved: int                  # lanes whose final state misses the next lane's entry
+    final_states: np.ndarray    # (N,) int32: the state after each stream
+    lo: int                     # the least and the greatest id of the states
+    hi: int                     # whose range the pass checks (0, -1: none)
+    answer: np.ndarray          # int32: what the pass returns to the host
+
+
+def _speculate(finals_pass, blocks: torch.Tensor, lanes: _Lanes,
+               overlap: int) -> torch.Tensor:
+    """Entry guesses for the lanes of (NB, B, ...) ``blocks``: each lane
+    replays the last ``overlap`` steps of its own block from its stream's
+    start, in place (a strided view, no copy), and its final state is the
+    next lane's guess. ``finals_pass(columns, entries)`` returns the final
+    states of a (B', NB, ...) view."""
     b = blocks.shape[1]
-    return torch.cat([blocks[:1, b - ov:], blocks[:-1, b - ov:]], dim=0).T
+    ov = min(overlap, b)
+    if ov <= 0:
+        return lanes.start
+    return lanes.shift(finals_pass(blocks[:, b - ov:].transpose(0, 1),
+                                   lanes.start))
 
 
-def _run_pass(pass_fn, pass_finals, entries0, shift, max_iters: int):
-    """Speculation first: run the output pass from the guessed entries; if
-    the guesses verify, its results stand. Otherwise iterate the Jacobi
-    fixpoint and run the output pass once more from its entries. Returns
-    (pass outputs, converged, iterations), counted as the JAX engine does:
-    1 on the speculation path. Each pass, with its convergence read, is an
-    ``rf.engine.pass`` span."""
+def _round(pass_fn, entries: torch.Tensor, lanes: _Lanes,
+           answer: bool = False):
+    """One chain pass from ``entries`` and its verdict, queued in one
+    ``rf.engine.pass`` span, then read with one ``.cpu()``: under
+    ``rf.device.readback`` where the read carries the chunk's answer
+    (``answer``), else as a control read. ``pass_fn(entries)`` returns (the
+    pass's outputs, final states first; the state tensors whose range the
+    verdict takes; the int32 tensors that ride in the read). Returns (the
+    outputs, on the device, and the ``_Verdict``)."""
     with trace("rf.engine.pass"):
-        out0 = pass_fn(entries0)
-        entries = shift(out0[0])
-        guessed = bool((entries == entries0).all())
-    if guessed:
-        return out0, True, 1
-    entries, done, it = _jacobi(pass_finals, entries, shift, max_iters)
-    with trace("rf.engine.pass"):
-        return pass_fn(entries), done, it
+        out, ranged, small = pass_fn(entries)
+        finals, ps = out[0], lanes.per_stream
+        nb = finals.shape[0]
+        miss = finals[:-1] != entries[1:]
+        if ps < nb:  # a stream's last lane has no next entry
+            miss[ps - 1 :: ps] = False
+        ranged = [t for t in ranged if t.numel()]
+        packed = torch.cat([
+            miss.sum(0, keepdim=True, dtype=torch.int32), finals[ps - 1 :: ps],
+            *(x.reshape(1) for t in ranged for x in torch.aminmax(t)),
+            *(t.reshape(-1) for t in small)])
+    if answer:
+        with trace("rf.device.readback"):  # the host's one wait
+            host = packed.cpu().numpy()
+    else:
+        host = packed.cpu().numpy()
+    n = nb // ps
+    k = 1 + n + 2 * len(ranged)
+    head = host[:k].tolist()
+    lo, hi = (min(head[1 + n :: 2]), max(head[2 + n :: 2])) if ranged else (0, -1)
+    return out, _Verdict(head[0], host[1 : 1 + n], lo, hi, host[k:])
 
 
-def _jacobi(pass_finals, entries, shift, max_iters: int):
-    """The Jacobi rounds after a rejected guess, from the entries that the
-    first pass shifted in: each round (an ``rf.engine.pass`` span) runs the
-    finals pass and reads whether the entries moved. Returns (entries,
-    converged, iterations), the first pass counted as iteration 1."""
-    done, it = False, 1
-    while not done and it < max_iters:
-        with trace("rf.engine.pass"):
-            new_entries = shift(pass_finals(entries))
-            done = bool((new_entries == entries).all())
-        entries = new_entries
+def _jacobi(round_fn, out, verdict: _Verdict, lanes: _Lanes, max_iters: int):
+    """The Jacobi rounds after a rejected guess: each runs ``round_fn``
+    from the entries that the last pass's final states (``out[0]``) shift
+    in, until its verdict holds or ``max_iters`` passes have run, the first
+    included. Returns (the last round's outputs, its verdict, the passes
+    run)."""
+    it = 1
+    while verdict.moved and it < max_iters:
+        out, verdict = round_fn(lanes.shift(out[0]))
         it += 1
-    return entries, done, it
+    return out, verdict, it
 
 
-def _counts_pass(tables: DfaTables, cls_seq, entries):
-    """K2 from ``entries`` and its verdict, queued (an ``rf.engine.pass``
-    span), then the one read (``rf.device.readback``). Returns (the lanes
-    whose final state is not the next lane's entry, the final state,
-    whether every final state is in range, the final states on the device,
-    the (S,) int32 counts on the host)."""
-    with trace("rf.engine.pass"):
-        finals, counts = chain_pass_counts(tables, cls_seq, entries)
-        lo, hi = torch.aminmax(finals)
-        verdict = torch.stack([(finals[:-1] != entries[1:]).sum(dtype=torch.int32),
-                               finals[-1], lo, hi])
-        out = torch.cat([verdict, counts])
-    with trace("rf.device.readback"):  # the host's one wait
-        out = out.cpu()
-    moved, final, lo, hi = out[:4].tolist()
-    return moved, final, 0 <= lo and hi < tables.num_states, finals, out[4:]
+def _scan(tables: DfaTables, classes: torch.Tensor, lanes: _Lanes, emit: str,
+          max_iters: int, overlap: int):
+    """The k=1 engines over (L,) or (N, L) ``classes``, a block a lane
+    (``lanes.per_stream`` blocks a stream): the speculation, the
+    output pass in ``emit`` mode as the first round, and after a miss the
+    Jacobi rounds on finals passes and the output pass again from their
+    entries (``iterations``: 1 on the speculation path, else the rounds +
+    1, as the JAX engine counts). Returns (the output pass's outputs, its
+    verdict, converged, iterations, domain_ok)."""
+    if classes.shape[-1] % lanes.per_stream:
+        raise ValueError("stream length must be divisible by num_blocks")
+    blocks = classes.reshape(lanes.start.shape[0], -1)
+    cls_seq = blocks.T  # (B, NB) columns over block-major storage
 
+    def output(entries):
+        if emit == "full":
+            out = chain_pass_full(tables, cls_seq, entries)
+            return out, out[:2], ()
+        if emit == "mask":
+            out = chain_pass_mask(tables, cls_seq, entries)
+            return out, out[:1], ()
+        out = _chain_pass_counts_multi(tables, cls_seq, entries,
+                                       blocks.shape[0] // lanes.per_stream)
+        return out, out[:1], out[1:]
 
-def _scan_counts(tables: DfaTables, blocks: torch.Tensor, start: int,
-                 max_iters: int, ov: int) -> FastScanResult:
-    """``dfa_scan_fast``'s counts mode over (NB, B) class blocks. Nothing
-    before the verdict needs a host value: the start state is filled on the
-    device, the table's range is read once per table tensor
-    (``table_in_range``), and ``_counts_pass`` reads the verdict and the
-    counts together, so a pinned upload queued before the call may still be
-    in flight until then. A guess that verifies keeps those counts;
-    otherwise the Jacobi rounds (``_jacobi``, which ``_run_pass`` shares)
-    and the output pass run again. The final state and the counts come back
-    on the host."""
-    cls_seq = blocks.T
-    table_ok = table_in_range(tables.table)
-    entries = torch.full((blocks.shape[0],), start, dtype=torch.int32,
-                         device=blocks.device)
-    start_t = entries[:1]
+    def finals_only(entries):
+        return (chain_pass_finals(tables, cls_seq, entries),), (), ()
 
-    def shift(finals):
-        return torch.cat([start_t, finals[:-1]])
-
-    if ov > 0:
-        spec = chain_pass_finals(tables, _overlap_seq(blocks, ov), entries)
-        entries = torch.cat([start_t, spec[1:]])
-    moved, final, finals_ok, finals, counts = _counts_pass(tables, cls_seq,
-                                                           entries)
-    converged, it = moved == 0, 1
+    answer = emit == "counts"
+    entries = _speculate(lambda cols, e: chain_pass_finals(tables, cols, e),
+                         blocks, lanes, overlap)
+    out, verdict = _round(output, entries, lanes, answer)
+    converged, it = verdict.moved == 0, 1
     if not converged:
-        entries, converged, it = _jacobi(
-            lambda e: chain_pass_finals(tables, cls_seq, e), shift(finals),
-            shift, max_iters)
-        _, final, finals_ok, _, counts = _counts_pass(tables, cls_seq, entries)
-    return FastScanResult(
-        final_state=torch.tensor(final, dtype=torch.int32), match_mask=None,
-        states=None, converged=converged, iterations=it, counts=counts,
-        domain_ok=table_ok and finals_ok,
-    )
+        out, verdict, it = _jacobi(lambda e: _round(finals_only, e, lanes),
+                                   out, verdict, lanes, max_iters)
+        converged = verdict.moved == 0
+        out, verdict = _round(output, lanes.shift(out[0]), lanes, answer)
+    ok = (table_in_range(tables.table) and 0 <= verdict.lo
+          and verdict.hi < tables.num_states)
+    return out, verdict, converged, it, ok
 
 
 def dfa_scan_fast(
@@ -239,58 +284,23 @@ def dfa_scan_fast(
 
     ``emit``: "full" returns the state and accept bit before every byte,
     "mask" only the accept bits, "counts" only the per-state accept-visit
-    counts (with the final state on the host, ``_scan_counts``).
-    ``classes`` may be uint8, int16 or int32 and lies on the device that
-    runs the scan."""
+    counts (read with the verdict). ``classes`` may be uint8, int16 or int32
+    and lies on the device that runs the scan; the final state, the counts
+    and ``domain_ok`` come back on the host."""
     if emit not in ("full", "mask", "counts"):
         raise ValueError(f"emit must be full, mask or counts, got {emit!r}")
-    l = classes.shape[0]
-    if l % num_blocks:
-        raise ValueError("stream length must be divisible by num_blocks")
-    b = l // num_blocks
-    dev = classes.device
-    blocks = classes.reshape(num_blocks, b)
-    if emit == "counts":
-        return _scan_counts(tables, blocks, start, max_iters, min(overlap, b))
-    cls_seq = blocks.T  # (B, NB) columns over block-major storage
-    s_dim = tables.num_states
-    start_t = torch.tensor([start], dtype=torch.int32, device=dev)
-
-    def shift(finals):
-        return torch.cat([start_t, finals[:-1]])
-
-    entries0 = torch.full((num_blocks,), start, dtype=torch.int32, device=dev)
-    ov = min(overlap, b)
-    if ov > 0:
-        spec = chain_pass_finals(tables, _overlap_seq(blocks, ov), entries0)
-        entries0 = torch.cat([start_t, spec[1:]])
-
-    pass_finals = lambda e: chain_pass_finals(tables, cls_seq, e)
-    table_ok = table_domain_ok(tables)
-
-    if emit == "mask":
-        (finals, acc), converged, iters = _run_pass(
-            lambda e: chain_pass_mask(tables, cls_seq, e),
-            pass_finals, entries0, shift, max_iters,
-        )
-        return FastScanResult(
-            final_state=finals[-1], match_mask=acc.T.reshape(-1), states=None,
-            converged=converged, iterations=iters,
-            domain_ok=table_ok & _finals_domain_ok(finals, s_dim),
-        )
-    (finals, states, acc), converged, iters = _run_pass(
-        lambda e: chain_pass_full(tables, cls_seq, e),
-        pass_finals, entries0, shift, max_iters,
-    )
+    lanes = _Lanes(torch.full((num_blocks,), start, dtype=torch.int32,
+                              device=classes.device), num_blocks)
+    out, verdict, converged, it, ok = _scan(tables, classes, lanes, emit,
+                                            max_iters, overlap)
     # (B, NB) block-major storage: .T.reshape(-1) is stream order, no copy
     return FastScanResult(
-        final_state=finals[-1],
-        match_mask=acc.T.reshape(-1),
-        states=states.T.reshape(-1),
-        converged=converged,
-        iterations=iters,
-        domain_ok=(table_ok & _finals_domain_ok(finals, s_dim)
-                   & _finals_domain_ok(states, s_dim)),
+        final_state=torch.from_numpy(verdict.final_states.reshape(())),
+        match_mask=out[-1].T.reshape(-1) if emit != "counts" else None,
+        states=out[1].T.reshape(-1) if emit == "full" else None,
+        converged=converged, iterations=it,
+        counts=torch.from_numpy(verdict.answer) if emit == "counts" else None,
+        domain_ok=ok,
     )
 
 
@@ -310,58 +320,21 @@ def dfa_scan_fast_multi(
     the speculation and in every Jacobi shift, so streams stay independent.
 
     emit="counts": per-stream per-state histograms; emit="full": per-stream
-    (N, L) states and match masks."""
+    (N, L) states and match masks. The final states and the counts come
+    back on the host."""
     if emit not in ("full", "counts"):
         raise ValueError(f"emit must be full or counts, got {emit!r}")
     n, l = classes.shape
-    if l % num_blocks:
-        raise ValueError("stream length must be divisible by num_blocks")
-    b = l // num_blocks
-    nb_tot = n * num_blocks
-    dev = classes.device
-    blocks = classes.reshape(nb_tot, b)
-    cls_seq = blocks.T  # (B, NB_tot), lanes stream-major
-    starts_v = torch.as_tensor(starts, dtype=torch.int32, device=dev)
-    starts_v = starts_v.reshape(-1).expand(n)
-    lane_start = starts_v.repeat_interleave(num_blocks)  # (NB_tot,)
-    first = (torch.arange(nb_tot, device=dev) % num_blocks) == 0
-
-    def shift(finals):
-        prev = torch.cat([lane_start[:1], finals[:-1]])
-        return torch.where(first, lane_start, prev)
-
-    entries0 = lane_start
-    ov = min(overlap, b)
-    if ov > 0:
-        spec = chain_pass_finals(tables, _overlap_seq(blocks, ov), entries0)
-        entries0 = torch.where(first, lane_start, spec)
-
-    pass_finals = lambda e: chain_pass_finals(tables, cls_seq, e)
-    s_dim = tables.num_states
-    table_ok = table_domain_ok(tables)
-
-    if emit == "counts":
-        (finals, counts), converged, iters = _run_pass(
-            lambda e: _chain_pass_counts_multi(tables, cls_seq, e, n),
-            pass_finals, entries0, shift, max_iters,
-        )
-        return MultiScanResult(
-            final_states=finals.reshape(n, num_blocks)[:, -1],
-            counts=counts, match_mask=None, states=None,
-            converged=converged, iterations=iters,
-            domain_ok=table_ok & _finals_domain_ok(finals, s_dim),
-        )
-    (finals, states, acc), converged, iters = _run_pass(
-        lambda e: chain_pass_full(tables, cls_seq, e),
-        pass_finals, entries0, shift, max_iters,
-    )
+    starts_v = torch.as_tensor(starts, dtype=torch.int32, device=classes.device)
+    lanes = _Lanes(starts_v.reshape(-1).expand(n).repeat_interleave(num_blocks),
+                   num_blocks)
+    out, verdict, converged, it, ok = _scan(tables, classes, lanes, emit,
+                                            max_iters, overlap)
     return MultiScanResult(
-        final_states=finals.reshape(n, num_blocks)[:, -1],
-        counts=None,
-        match_mask=acc.T.reshape(n, l),
-        states=states.T.reshape(n, l),
-        converged=converged,
-        iterations=iters,
-        domain_ok=(table_ok & _finals_domain_ok(finals, s_dim)
-                   & _finals_domain_ok(states, s_dim)),
+        final_states=torch.from_numpy(verdict.final_states),
+        counts=(torch.from_numpy(verdict.answer.reshape(n, -1))
+                if emit == "counts" else None),
+        match_mask=out[2].T.reshape(n, l) if emit == "full" else None,
+        states=out[1].T.reshape(n, l) if emit == "full" else None,
+        converged=converged, iterations=it, domain_ok=ok,
     )

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.profiling import trace
+from .dfa_fast import _jacobi, _Lanes, _round, _speculate
 from .hopper_kgram import (
     KgramMaps,
     PackedTa,
@@ -237,24 +237,6 @@ def kgram_pass_full(ta: PackedTa, cls_seq, entries, maps: KgramMaps | None = Non
     return kgram_chain(ta, cls_seq, entries)
 
 
-def _speculative_entries(ta, blocks: torch.Tensor, start: int,
-                         overlap: int, maps) -> torch.Tensor:
-    """Entry guesses for all block lanes: each lane replays the previous
-    block's last ``overlap`` steps from the start state (lane 0 pinned to
-    the true start)."""
-    num_blocks, b = blocks.shape[:2]
-    ov = min(overlap, b)
-    entries0 = torch.full((num_blocks,), start, dtype=torch.int32,
-                          device=blocks.device)
-    if ov <= 0:
-        return entries0
-    # lane l replays the tail of its own block in place (a strided view, no
-    # copy): its final state is lane l+1's guess
-    spec, _ = kgram_pass_full(ta, blocks[:, b - ov:].transpose(0, 1),
-                              entries0, maps)
-    return torch.cat([entries0[:1], spec[:-1]])
-
-
 def dfa_scan_kgram(
     ta: PackedTa,              # T_k and A_k (pack_ta)
     classes_k: torch.Tensor,   # (L/k,) k-gram class ids, or (L,) raw bytes
@@ -272,13 +254,12 @@ def dfa_scan_kgram(
     and the table do not fit in the card's shared memory together, the text
     is mapped to class ids first (``map_classes``).
 
-    Each lane first replays the tail of the previous block (speculation);
-    full passes then repeat until the entry vector is a fixpoint, so the
-    totals of the converging pass were computed from the true entries.
-    ``iterations`` counts those full passes, the first included.
-
-    The host waits once a pass: everything up to the pass's verdict is
-    queued, and one copy brings back the verdict, the total and the final
+    The seams take ``ops/dfa_fast.py``'s protocol (``_speculate``,
+    ``_round``, ``_jacobi``), with the full pass as the finals pass: full
+    passes repeat until the entry vector is a fixpoint, so the totals of the
+    converging pass were computed from the true entries. ``iterations``
+    counts those full passes, the first included. The host waits once a
+    pass, on the read that brings back the verdict, the total and the final
     state together (a pinned upload before the call may still be in flight
     until then)."""
     if maps is not None:
@@ -292,30 +273,25 @@ def dfa_scan_kgram(
     l = classes_k.shape[0]
     if l % num_blocks:
         raise ValueError("stream length must be divisible by num_blocks")
-    b = l // num_blocks
-    blocks = classes_k.reshape(num_blocks, b, *classes_k.shape[1:])
+    blocks = classes_k.reshape(num_blocks, l // num_blocks, *classes_k.shape[1:])
     cls_seq = blocks.transpose(0, 1)  # (B, NB) columns over block-major storage
+    lanes = _Lanes(torch.full((num_blocks,), start, dtype=torch.int32,
+                              device=blocks.device), num_blocks)
 
-    # lane 0 enters at ``start`` on every pass (entries[0] == start), so the
-    # entries are a fixpoint when every other lane's equals the final state
-    # of the lane before it
-    entries = _speculative_entries(ta, blocks, start, overlap, maps)
-    final = total = 0
-    converged, it = False, 0
-    while not converged and it < max_iters:
-        with trace("rf.engine.pass"):  # a pass and its verdict, queued
-            finals, totals = kgram_pass_full(ta, cls_seq, entries, maps)
-            verdict = torch.stack([(finals[:-1] != entries[1:]).sum(),
-                                   totals.sum(), finals[-1].long()])
-        with trace("rf.device.readback"):  # the host's one wait a pass
-            moved, total, final = verdict.tolist()
-        converged = moved == 0
-        if not converged:
-            entries = torch.cat([entries[:1], finals[:-1]])
-        it += 1
+    def full(entries):
+        finals, totals = kgram_pass_full(ta, cls_seq, entries, maps)
+        # the int64 total rides in the int32 read as its two words
+        return (finals, totals), (), (totals.sum().reshape(1).view(torch.int32),)
+
+    def full_round(entries):
+        return _round(full, entries, lanes, answer=True)
+
+    entries = _speculate(lambda cols, e: kgram_pass_full(ta, cols, e, maps)[0],
+                         blocks, lanes, overlap)
+    _, verdict, it = _jacobi(full_round, *full_round(entries), lanes, max_iters)
     return KgramScanResult(
-        final_state=torch.tensor(final, dtype=torch.int32),
-        total=torch.tensor(total, dtype=torch.int64),
-        converged=converged,
+        final_state=torch.from_numpy(verdict.final_states.reshape(())),
+        total=torch.from_numpy(verdict.answer.view(np.int64).reshape(())),
+        converged=verdict.moved == 0,
         iterations=it,
     )

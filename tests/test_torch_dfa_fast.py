@@ -24,6 +24,7 @@ from regex_fpga_tpu.utils.config import EngineConfig
 from regex_fpga_tpu_torch import api as tapi
 from regex_fpga_tpu_torch.ops import dfa_fast as tf
 from regex_fpga_tpu_torch.ops import hopper_dfa
+from regex_fpga_tpu_torch.ops import kgram as tk
 from regex_fpga_tpu_torch.ops.tables import tables_from_numpy
 
 from conftest import random_dfa_table
@@ -236,42 +237,185 @@ def unsynced_tables(which):
     return table, accept
 
 
-def serial_counts(table, accept, stream, start=0):
+def serial_walk(table, accept, stream, start=0):
     """A serial walk over the bytes with a (256, S) table: (the accept
-    visits before each byte per state, the final state)."""
+    visits before each byte per state, the final state, the accept bit and
+    the state before each byte)."""
     counts = np.zeros(table.shape[1], np.int64)
+    mask = np.zeros(len(stream), bool)
+    states = np.zeros(len(stream), np.int32)
     s = start
-    for byte in stream:
+    for i, byte in enumerate(stream):
+        states[i], mask[i] = s, accept[s]
         counts[s] += accept[s]
         s = table[byte, s]
-    return counts, int(s)
+    return counts, int(s), mask, states
 
 
+def serial_counts(table, accept, stream, start=0):
+    """A serial walk's (accept visits per state, final state)."""
+    return serial_walk(table, accept, stream, start)[:2]
+
+
+#: the k=1 engines' modes: (engine, emit)
+MODES = [("fast", "counts"), ("fast", "mask"), ("fast", "full"),
+         ("multi", "counts"), ("multi", "full")]
+
+
+def run_both(engine, jt, pt, classes, starts, **kw):
+    """One scan by JAX and by the port: ``dfa_scan_fast`` over classes[0]
+    from starts[0], or ``dfa_scan_fast_multi`` over every row."""
+    if engine == "fast":
+        return (jf.dfa_scan_fast(jt, jnp.asarray(classes[0]), start=int(starts[0]), **kw),
+                tf.dfa_scan_fast(pt, torch.as_tensor(classes[0]), start=int(starts[0]), **kw))
+    return (jf.dfa_scan_fast_multi(jt, jnp.asarray(classes), starts=jnp.asarray(starts), **kw),
+            tf.dfa_scan_fast_multi(pt, torch.as_tensor(classes),
+                                   starts=torch.as_tensor(starts), **kw))
+
+
+def assert_multi_equal(got, want):
+    assert got.converged == bool(want.converged)
+    assert got.iterations == int(want.iterations)
+    assert bool(got.domain_ok) == bool(want.domain_ok)
+    assert_eq(got.final_states, want.final_states)
+    for field in ("counts", "match_mask", "states"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), field
+        if g is not None:
+            assert_eq(g, w)
+
+
+@pytest.mark.parametrize("engine,emit", MODES)
 @pytest.mark.parametrize("which,max_iters,overlap", [
     ("reset counter", 16, 64), ("reset counter", 16, 1),
     ("reset counter", 3, 1), ("mod 3", 16, 64), ("mod 3", 5, 64),
     ("parity", 16, 64), ("parity", 4, 0),
 ])
-def test_queued_counts_failed_guesses_match_jax(which, max_iters, overlap):
-    """Counts mode where the queued verdict rejects the guess: the Jacobi
+def test_queued_counts_failed_guesses_match_jax(engine, emit, which, max_iters,
+                                                overlap):
+    """Every mode where the queued verdict rejects the guess: the Jacobi
     rounds and the output pass after the one read give the JAX package's
-    counts, final state, ``converged`` and ``iterations``, and, converged,
-    a serial walk's counts and final state."""
+    results, final state(s), ``converged`` and ``iterations``, and,
+    converged, a serial walk's counts, mask, states and final state, each
+    stream from its own start in the batch scan."""
     table, accept = unsynced_tables(which)
     jt, pt = both_tables(table, accept)
-    text = reset_counter_text(3, 16, 65, resets=(0, 3, 4, 10))
-    classes = np.asarray(jt.class_of)[text].astype(np.uint8)
-    kw = dict(num_blocks=16, max_iters=max_iters, overlap=overlap,
-              emit="counts")
-    want = jf.dfa_scan_fast(jt, jnp.asarray(classes), **kw)
-    got = tf.dfa_scan_fast(pt, torch.as_tensor(classes), **kw)
-    assert got.iterations > 1 and bool(got.domain_ok)
-    assert_fast_equal(got, want)
+    texts = [reset_counter_text(3, 16, 65, resets=(0, 3, 4, 10))]
+    starts = np.array([0], np.int32)
+    if engine == "multi":
+        texts.append(reset_counter_text(5, 16, 65, resets=(1, 2, 9)))
+        starts = np.array([0, 1], np.int32)
+    classes = np.asarray(jt.class_of)[np.stack(texts)].astype(np.uint8)
+    kw = dict(num_blocks=16, max_iters=max_iters, overlap=overlap, emit=emit)
+    want, got = run_both(engine, jt, pt, classes, starts, **kw)
+    assert got.iterations > 1 and got.domain_ok is True
+    if engine == "fast":
+        assert_fast_equal(got, want)
+        got_finals = [int(got.final_state)]
+    else:
+        assert_multi_equal(got, want)
+        got_finals = got.final_states.tolist()
     assert got.converged == (max_iters == 16)
-    if got.converged:
-        counts, final = serial_counts(table, accept, text)
-        assert_eq(got.counts, counts)
-        assert int(got.final_state) == final
+    if not got.converged:
+        return
+    for i, (text, start) in enumerate(zip(texts, starts)):
+        counts, final, mask, states = serial_walk(table, accept, text, start)
+        assert got_finals[i] == final
+        row = (lambda t: t) if engine == "fast" else (lambda t: t[i])
+        if emit == "counts":
+            assert_eq(row(got.counts), counts)
+        else:
+            assert_eq(row(got.match_mask), mask)
+        if emit == "full":
+            assert_eq(row(got.states), states)
+
+
+@pytest.mark.parametrize("engine,emit", MODES + [("kgram", None)])
+@pytest.mark.parametrize("guess", ["holds", "misses"])
+def test_one_host_read_a_round(engine, emit, guess, monkeypatch):
+    """The round helper reads each pass's verdict, final states, range and
+    small answer with one ``.cpu()`` and nothing else is read: one read a
+    chunk when the speculation's guess holds; after a miss, one a round (the
+    k=1 engines: the output pass, the Jacobi rounds, the output pass again;
+    K3: its full passes)."""
+    from test_torch_kgram import packed
+
+    table, accept = unsynced_tables("reset counter")
+    _, pt = both_tables(table, accept)
+    text = reset_counter_text(3, 16, 65, resets=(0, 3, 4, 10))
+    if guess == "holds":  # a reset at the end of every block
+        text[:] = ord("a")
+        text[64::65] = ord("b")
+    classes = pt.class_of[torch.as_tensor(text).long()].to(torch.uint8)
+    if engine == "fast":
+        scan = lambda: tf.dfa_scan_fast(pt, classes, num_blocks=16, emit=emit)
+    elif engine == "multi":
+        scan = lambda: tf.dfa_scan_fast_multi(
+            pt, torch.stack([classes, classes]), num_blocks=16, emit=emit)
+    else:
+        kt = tk.build_kgram(pt, levels=0)
+        ta, ids = packed(kt.table, kt.acc_table), tk.map_kgram_classes(kt, text)
+        scan = lambda: tk.dfa_scan_kgram(ta, ids, num_blocks=16)
+    reads, rounds = [], []
+    real_cpu, real_round = torch.Tensor.cpu, tf._round
+
+    def cpu(self, *args, **kw):
+        reads.append(tuple(self.shape))
+        return real_cpu(self, *args, **kw)
+
+    def spy(*args, **kw):
+        before = len(reads)
+        out = real_round(*args, **kw)
+        rounds.append(len(reads) - before)
+        return out
+    monkeypatch.setattr(tf, "_round", spy)
+    monkeypatch.setattr(tk, "_round", spy)
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    res = scan()
+    assert res.converged
+    assert rounds == [1] * len(rounds) and len(reads) == len(rounds)
+    if guess == "holds":
+        assert res.iterations == 1 and len(rounds) == 1
+    else:
+        assert res.iterations > 1
+        assert len(rounds) == res.iterations + (engine != "kgram")
+
+
+@pytest.mark.parametrize("which", ["random", "256 classes", "parity"])
+def test_batches_with_every_lead_match_jax(which):
+    """An equal-length batch of odd width (one lead for every row) and a
+    ragged batch whose last chunk gives a row of every lead from 0 to 15,
+    beside a short row and an empty one: JAX's counts and final states,
+    where the guesses hold, with C = 256 (the stall id needs int16), and
+    where the automaton never synchronizes (the one per-row fallback)."""
+    rng = np.random.default_rng(6)
+    if which == "parity":
+        table, accept = unsynced_tables("parity")
+    else:
+        table, accept = random_dfa_table(rng, 24, 3)
+        if which == "random":  # bytes in 40 classes, not 256
+            table = table[rng.integers(0, 40, 256)]
+    dfa = CompiledDfa(table=table, accept=accept, start=0,
+                      dead=-1 if which == "parity" else 23)
+    cfg = EngineConfig(scan_backend="device", num_blocks=16,
+                       min_block_bytes=4, chunk_bytes=1024, max_iters=4)
+    tm = tapi.DfaMatcher(dfa, cfg, device="cpu")
+    jm = japi.DfaMatcher(dfa, cfg)
+    if which != "parity":
+        assert (tm.tables.num_classes == 256) == (which == "256 classes")
+    batch = rng.integers(0, 256, size=(5, 997)).astype(np.uint8)
+    rows = [rng.integers(0, 256, size=2000 - k).astype(np.uint8)
+            for k in range(16)] + [batch[0, :5], batch[0, :0]]
+    for run in ("_scan_batch_counts", "_scan_ragged_counts"):
+        data = batch if run == "_scan_batch_counts" else rows
+        counts, _, converged, finals = getattr(tm, run)(data)
+        want = getattr(jm, run)(data)
+        np.testing.assert_array_equal(counts, want[0])
+        np.testing.assert_array_equal(finals, want[3])
+        assert converged == (which != "parity")
+    for data in (batch, rows):
+        np.testing.assert_array_equal(tm.scan(data).counts,
+                                      jm.scan(data).counts)
 
 
 @pytest.mark.parametrize("which", ["random", "reset counter", "mod 3",

@@ -174,6 +174,72 @@ def test_dfa_chain_lanes_steps_and_orders(cuda, nb, b, block_major, c, s):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("b,ov", [(1024, 64), (65, 64), (33, 33), (7, 5)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16])
+@pytest.mark.parametrize("c,s", [(10, 23), (83, 1025), (111, 1899)])
+def test_dfa_chain_reads_block_tails_in_place(cuda, c, s, dtype, b, ov):
+    """The speculation's input (``dfa_fast._speculate``): the last ``ov``
+    steps of each lane's own block, a (ov, NB) view of (NB, B) block-major
+    class ids whose lanes lie B apart and start at any byte. K1 reads it in
+    place, with no copy, on the uint32, uint16 and global-table routes,
+    and its final states equal the plain version's."""
+    rng = np.random.default_rng(b * ov + s)
+    nb = 4099
+    table, accept = random_table(rng, c, s, cuda)
+    blocks = torch.as_tensor(rng.integers(0, c, size=(nb, b)), device=cuda).to(dtype)
+    tails = blocks[:, b - ov:].transpose(0, 1)
+    ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32),
+                          device=cuda)
+    assert hopper_dfa._device_args(table, accept, tails, ent)[2] is tails
+    got = hopper_dfa.dfa_chain(table, accept, tails, ent)[0]
+    want = hopper_dfa.dfa_chain_plain(table, accept, tails, ent)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("guess", ["holds", "misses"])
+@pytest.mark.parametrize("engine,emit", [("fast", "counts"), ("fast", "mask"),
+                                         ("fast", "full"), ("multi", "counts"),
+                                         ("multi", "full")])
+def test_scan_fast_on_card_matches_cpu(cuda, engine, emit, guess):
+    """``dfa_scan_fast`` and ``dfa_scan_fast_multi`` on the card against
+    the same scans on the CPU's plain passes, in every mode: the in-place
+    speculation, the one read a round, and the Jacobi rounds after a miss
+    (a counter mod 3 that ``b`` resets, with a reset in only some blocks)."""
+    from regex_fpga_tpu_torch.ops import dfa_fast
+
+    table = np.empty((256, 3), dtype=np.int32)
+    for st in range(3):
+        table[:, st] = (st + 1) % 3
+    table[ord("b"), :] = 0
+    accept = np.array([False, True, False])
+    rng = np.random.default_rng(7)
+    nb, b = 1024, 257
+    text = np.full((2, nb * b), ord("a"), np.uint8)
+    if guess == "holds":
+        text[:, b - 1 :: b] = ord("b")
+    else:
+        blocks = rng.choice(nb, size=nb - 8, replace=False)
+        text[:, blocks * b + rng.integers(0, b, size=len(blocks))] = ord("b")
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        tables = build_dfa_tables(table, accept, device=dev)
+        cls = tables.class_of[torch.as_tensor(text, device=dev).long()].to(torch.uint8)
+        if engine == "fast":
+            res = dfa_fast.dfa_scan_fast(tables, cls[0], num_blocks=nb, emit=emit)
+        else:
+            res = dfa_fast.dfa_scan_fast_multi(
+                tables, cls, num_blocks=nb, emit=emit,
+                starts=torch.tensor([0, 2], dtype=torch.int32, device=dev))
+        results.append(res)
+    got, want = results
+    assert got.iterations == want.iterations > (guess == "misses")
+    assert (got.converged, got.domain_ok) == (want.converged, want.domain_ok)
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g.cpu(), w.cpu())
+
+
 @pytest.mark.parametrize("c,s", [(83, 1025), (12, 30), (2, 32_767), (2, 32_768)])
 def test_corrupt_table_on_each_shared_route(cuda, c, s):
     """Entries that uint16 cannot hold (negative, 65,535 and above) and
