@@ -12,7 +12,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    regex_fpga_tpu_torch/csrc with nvcc and the native host walker from
    native/golden_scan.cpp with g++, and prints the build times;
 2. kernels: K1 (dfa_chain, all three modes), K2 (dfa_chain_counts, single
-   and per-stream, on random class ids and on real text) and K3
+   and per-stream, on random class ids and on real text; K1 and K2 also on
+   raw text given the byte-to-class map, as the main path launches them, on
+   the tokenizer's table and on cl100k's in global memory) and K3
    (kgram_chain over class ids and kgram_chain_bytes over raw text) against
    their plain PyTorch versions on the card at the main path's shapes, bit
    for bit, with the time, the bound, the chain floor (steps x the measured
@@ -367,6 +369,20 @@ def random_global_table(rng, dev):
                              1024, device=dev)
 
 
+def cl100k_tables(dev):
+    """The cl100k_base pre-tokenizer's tables ((111, 1,899): K1 and K2 keep
+    them in global memory) and its start state, from the benchmark's
+    configuration file."""
+    from regex_fpga_tpu_torch.models import build_tokenizer_dfa
+    from regex_fpga_tpu_torch.ops.tables import build_dfa_tables
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "cl100k-pretok-utf8.json")) as f:
+        conf = json.load(f)
+    tok = build_tokenizer_dfa(conf["pat"], **conf["port"]["kwargs"])
+    return build_dfa_tables(tok.table, tok.accept, device=dev), int(tok.start)
+
+
 def phase_kernels(dev, tok_tables, tok_start, ac_tables):
     """Each kernel against its plain version on the card. Returns per-kernel
     {"max_abs_err", "ms", "plain_ms"} at the main path's shapes."""
@@ -477,6 +493,50 @@ def phase_kernels(dev, tok_tables, tok_start, ac_tables):
     print(f"kernels: K2 tokenizer on real text {nb}x1024, single and 64 "
           f"streams, {hit_share:.1%} of the steps count: bit-exact against "
           f"plain (tolerance 0)", flush=True)
+    # K1 and K2 given the byte map over the raw text, as DfaMatcher launches
+    # them on a chunk whose lanes divide it: against the plain versions
+    # given the map and the kernels over the mapped ids
+    raw = text.reshape(nb, 1024).T
+    cl_tables, cl_start = cl100k_tables(dev)
+    mapped_cases = {}
+    for name, t, start in (("tokenizer", tok_tables, tok_start),
+                           ("cl100k", cl_tables, cl_start)):
+        c, s = t.table.shape
+        lut = t.class_of.to(torch.uint8)
+        ids = torch.index_select(lut, 0, text.int()).reshape(nb, 1024).T
+        ents = (torch.full((nb,), start, dtype=torch.int32, device=dev),
+                torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32),
+                                device=dev))
+        mapped_cases[name] = (t, lut, ents[0], ids)
+        route = hd.dfa_chain_route("counts", c, s, nb, mapped=True)
+        check(route["table"] == hd.dfa_chain_route("counts", c, s, nb)["table"]
+              == ("global" if name == "cl100k" else "shared uint32"),
+              f"{name}: the mapped launch keeps the table's route")
+        for e in ents:
+            for mode in hd.MODES:
+                got = hd.dfa_chain(t.table, t.accept, raw, e, mode, class_of=lut)
+                errs["dfa_chain"] = max(
+                    errs["dfa_chain"],
+                    max_abs_err(got, hd.dfa_chain_plain(t.table, t.accept, raw, e,
+                                                        mode, class_of=lut)),
+                    max_abs_err(got, hd.dfa_chain(t.table, t.accept, ids, e, mode)))
+            for streams in (None, 64):
+                got = hd.dfa_chain_counts(t.table, t.accept, raw, e, streams,
+                                          class_of=lut)
+                errs["dfa_chain_counts"] = max(
+                    errs["dfa_chain_counts"],
+                    max_abs_err(got, hd.dfa_chain_counts_plain(
+                        t.table, t.accept, raw, e, streams, class_of=lut)),
+                    max_abs_err(got, hd.dfa_chain_counts(t.table, t.accept, ids,
+                                                         e, streams)))
+        torch.cuda.synchronize()
+        print(f"kernels: K1/K2 {name} S={s} C={c} on raw text {nb}x1024 given "
+              f"the byte map (table {route['table']}, staging ring of "
+              f"{route['ring']} windows, {route['lanes_per_cta']} lanes per "
+              f"CTA): K1 x3 modes, K2 single and 64 streams, from the start "
+              f"state and from random entries, bit-exact against plain given "
+              f"the map and against the kernels over the mapped ids "
+              f"(tolerance 0)", flush=True)
     for name, e in errs.items():
         check(e == 0, f"{name} differs from its plain version by {e}")
 
@@ -486,16 +546,24 @@ def phase_kernels(dev, tok_tables, tok_start, ac_tables):
                           device=dev).T
     ent = torch.zeros(nb, dtype=torch.int32, device=dev)
     tt, ta = tok_tables.table, tok_tables.accept
+    # K1/K2 as the main path launches them on a chunk its lanes divide: raw
+    # text given the byte map
+    tok_lut = mapped_cases["tokenizer"][1]
+    cl_t, cl_lut, cl_ent, cl_ids = mapped_cases["cl100k"]
     timing = {
-        "dfa_chain": lambda: hd.dfa_chain(tt, ta, cls, ent, "finals"),
-        "dfa_chain_counts": lambda: hd.dfa_chain_counts(tt, ta, cls, ent),
+        "dfa_chain": lambda: hd.dfa_chain(tt, ta, raw, ent, "finals",
+                                          class_of=tok_lut),
+        "dfa_chain_counts": lambda: hd.dfa_chain_counts(tt, ta, raw, ent,
+                                                        class_of=tok_lut),
         "kgram_chain": lambda: hk.kgram_chain(kg_ta, ck.T, ent),
         "kgram_chain_bytes":
             lambda: hk.kgram_chain_bytes(kg_ta, kg_maps, text3, ent),
     }
     plain = {
-        "dfa_chain": lambda: hd.dfa_chain_plain(tt, ta, cls, ent, "finals"),
-        "dfa_chain_counts": lambda: hd.dfa_chain_counts_plain(tt, ta, cls, ent),
+        "dfa_chain": lambda: hd.dfa_chain_plain(tt, ta, raw, ent, "finals",
+                                                class_of=tok_lut),
+        "dfa_chain_counts": lambda: hd.dfa_chain_counts_plain(tt, ta, raw, ent,
+                                                              class_of=tok_lut),
         "kgram_chain": lambda: hk.kgram_chain_plain(kg_ta, ck.T, ent),
         "kgram_chain_bytes":
             lambda: hk.kgram_chain_bytes_plain(kg_ta, kg_maps, text3, ent),
@@ -510,6 +578,29 @@ def phase_kernels(dev, tok_tables, tok_start, ac_tables):
                               .astype(np.uint8), device=dev).T
     at, aa, bt, ba = ac_tables.table, ac_tables.accept, big.table, big.accept
     extra = {
+        "dfa_chain[class ids]": lambda: hd.dfa_chain(tt, ta, cls, ent, "finals"),
+        "dfa_chain_counts[class ids]": lambda: hd.dfa_chain_counts(tt, ta, cls, ent),
+        "dfa_chain[full, raw text mapped]":
+            lambda: hd.dfa_chain(tt, ta, raw, ent, "full", class_of=tok_lut),
+        "dfa_chain[mask, raw text mapped]":
+            lambda: hd.dfa_chain(tt, ta, raw, ent, "mask", class_of=tok_lut),
+        "dfa_chain_counts[64 streams, raw text mapped]":
+            lambda: hd.dfa_chain_counts(tt, ta, raw, ent, 64, class_of=tok_lut),
+        "dfa_chain_counts[cl100k S=1899, global table, raw text mapped]":
+            lambda: hd.dfa_chain_counts(cl_t.table, cl_t.accept, raw, cl_ent,
+                                        class_of=cl_lut),
+        "dfa_chain[cl100k S=1899, global table, raw text mapped]":
+            lambda: hd.dfa_chain(cl_t.table, cl_t.accept, raw, cl_ent, "finals",
+                                 class_of=cl_lut),
+        # the same text as class ids, unmapped launches: the map's own cost
+        "dfa_chain[real text as class ids]":
+            lambda: hd.dfa_chain(tt, ta, text_cls, ent, "finals"),
+        "dfa_chain_counts[real text as class ids]":
+            lambda: hd.dfa_chain_counts(tt, ta, text_cls, ent),
+        "dfa_chain_counts[cl100k S=1899, global table, class ids]":
+            lambda: hd.dfa_chain_counts(cl_t.table, cl_t.accept, cl_ids, cl_ent),
+        "dfa_chain[cl100k S=1899, global table, class ids]":
+            lambda: hd.dfa_chain(cl_t.table, cl_t.accept, cl_ids, cl_ent, "finals"),
         "dfa_chain[full]": lambda: hd.dfa_chain(tt, ta, cls, ent, "full"),
         "dfa_chain[mask]": lambda: hd.dfa_chain(tt, ta, cls, ent, "mask"),
         "dfa_chain_counts[64 streams]":
@@ -532,8 +623,8 @@ def phase_kernels(dev, tok_tables, tok_start, ac_tables):
     }
     fin = torch.empty(nb, dtype=torch.int32, device=dev)
     bounds = {
-        "dfa_chain": bound_ms((cls, tt, ta, ent), (fin,)),
-        "dfa_chain_counts": bound_ms((cls, tt, ta, ent), (fin, torch.empty(
+        "dfa_chain": bound_ms((raw, tt, ta, ent, tok_lut), (fin,)),
+        "dfa_chain_counts": bound_ms((raw, tt, ta, ent, tok_lut), (fin, torch.empty(
             tt.shape[1], dtype=torch.int32, device=dev))),
         "kgram_chain": bound_ms((ck, kg_ta.narrow, ent), (fin, fin)),
         "kgram_chain_bytes": bound_ms((text, kg_ta.narrow, kg_maps.packed, ent),
@@ -560,7 +651,8 @@ def phase_kernels(dev, tok_tables, tok_start, ac_tables):
                          "shape": "tokenizer (S=23), 65,536 lanes x "
                                   + ("256 k-gram steps" if k3 else "1,024 steps")
                                   + (" of 4 raw bytes" if name.endswith("bytes")
-                                     else "")}
+                                     else "" if k3 else
+                                     " of raw text given the byte map")}
         print(f"time: {name} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
               f"{bounds[name]:.4f} ms, chain floor {floors[name] / 1e6:.4f} ms "
               f"({64 * MIB / ms / 1e6:.1f} GB/s of text)", flush=True)

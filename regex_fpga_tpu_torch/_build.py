@@ -84,10 +84,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build().path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dfa_chain.argtypes = [
-        p, i, ll, ll, p, p, i, i, p, i, i, p, p, p, ll, ll, p,
+        p, i, ll, ll, p, p, i, i, p, i, i, p, p, p, ll, ll, p, p,
     ]
-    lib.dfa_chain_counts.argtypes = [p, i, ll, ll, p, p, i, i, p, i, i, p, p, i, p]
-    lib.dfa_chain_route.argtypes = [i, i, i, i, i, i]
+    lib.dfa_chain_counts.argtypes = [p, i, ll, ll, p, p, i, i, p, i, i, p, p, i, p, p]
+    lib.dfa_chain_route.argtypes = [i, i, i, i, i, i, i]
     lib.dfa_chain_lanes_per_cta.argtypes = []
     lib.kgram_chain.argtypes = [
         p, i, ll, ll, i, p, i, i, p, i, i, p, i, i, i, i, p, i, i, p, p, p,

@@ -423,12 +423,14 @@ class DfaMatcher:
         at ``_lanes(w)`` lanes. ``data`` is (w,) or (N, w); for a ragged
         batch it holds the rows' bytes back to back, ``lens`` (N,) the bytes
         of each row and ``width`` the chunk's w. Returns (tables, ids,
-        lanes, lead). Where the lanes divide w and the rows are whole, the
-        ids are the mapped bytes (uint8) and the tables the matcher's;
-        otherwise each row is padded AT THE FRONT with ``lead`` stall ids
-        (one count, or one a row with ``lens``) to the width ``_padded(w)``
-        gives, and the tables are the stall-extended ones (the stall id is
-        C, int16 when C = 256).
+        lanes, lead, class_of). Where the lanes divide w and the rows are
+        whole, the ids are ``data`` itself, the raw bytes, with the
+        matcher's tables and its byte map ``class_of`` for the chain
+        kernels to map them; otherwise the bytes are mapped here, each row
+        is padded AT THE FRONT with ``lead`` stall ids (one count, or one a
+        row with ``lens``) to the width ``_padded(w)`` gives, the tables are
+        the stall-extended ones (the stall id is C, int16 when C = 256) and
+        ``class_of`` is None.
 
         Front padding keeps the seam speculation right: every pad step holds
         the chunk's entry state, which is also what each lane's replay
@@ -442,10 +444,10 @@ class DfaMatcher:
         w = data.shape[-1] if lens is None else width
         nb, w_pad = self._padded(w)
         lead = w_pad - (w if lens is None else lens)
+        if lens is None and not lead:
+            return self.tables, data, nb, 0, self._class_lut
         cls = torch.index_select(self._class_lut, 0,
                                  data.reshape(-1).int()).reshape(data.shape)
-        if lens is None and not lead:
-            return self.tables, cls, nb, 0
         stall = self.tables.num_classes
         rows = data.shape[:-1] if lens is None else (len(lens),)
         ids = torch.full((*rows, w_pad), stall,
@@ -457,7 +459,7 @@ class DfaMatcher:
             real = (torch.arange(w_pad, device=self.device)
                     >= torch.as_tensor(lead, device=self.device)[:, None])
             ids.masked_scatter_(real, cls.to(ids.dtype))
-        return self._stalled_tables(), ids, nb, lead
+        return self._stalled_tables(), ids, nb, lead, None
 
     # --------------------------------------------------------- host backend
 
@@ -693,7 +695,9 @@ class DfaMatcher:
         ``emit`` mode (``dfa_scan_fast``), or on the exact path where it
         does not converge. A pinned chunk's copy is only queued: the scan's
         one read waits for it. ``reverse`` scans the chunk's bytes back to
-        front: it is uploaded as it lies and flipped on the device. The
+        front: it is uploaded as it lies and flipped on the device. Its
+        ids and the byte map, where the chain kernels map the raw bytes
+        themselves, come from ``_chunk_ids``. The
         mask and states stay on the device; the pad's positions are dropped
         from them, and its visits of the entry state from the counts."""
         with trace("rf.engine.k1"):
@@ -701,9 +705,10 @@ class DfaMatcher:
                 data = self._upload(raw, non_blocking=True)
                 if reverse:
                     data = torch.flip(data, (0,))
-                tables, ids, nb, lead = self._chunk_ids(data)
+                tables, ids, nb, lead, class_of = self._chunk_ids(data)
                 res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                    max_iters=self.config.max_iters, emit=emit)
+                                    max_iters=self.config.max_iters, emit=emit,
+                                    class_of=class_of)
             self._check_domain(res.domain_ok)
             if res.converged:
                 return _Chunk(
@@ -727,11 +732,11 @@ class DfaMatcher:
         the rows' device bytes, ``rows`` their bytes on the host. Returns
         (counts (N, S) int64, final states (N,) int32, iterations,
         converged)."""
-        tables, ids, nb, lead = chunk
+        tables, ids, nb, lead, class_of = chunk
         res = dfa_scan_fast_multi(
             tables, ids, num_blocks=nb,
             starts=torch.as_tensor(cur, device=self.device),
-            max_iters=self.config.max_iters, emit="counts",
+            max_iters=self.config.max_iters, emit="counts", class_of=class_of,
         )
         self._check_domain(res.domain_ok)
         if res.converged:
@@ -834,8 +839,8 @@ class DfaMatcher:
     def _scan_batch_counts(self, arr: np.ndarray):
         """Chunked batch scan of (N, L) equal-length streams via
         ``dfa_scan_fast_multi`` (per-stream histograms on the device), the
-        whole array uploaded once and each row's chunk padded as
-        ``_chunk_ids`` pads it. Returns (counts (N, S), iterations,
+        whole array uploaded once and each row's chunk mapped and padded
+        as ``_chunk_ids`` decides. Returns (counts (N, S), iterations,
         converged, final states (N,))."""
         n, l = arr.shape
         data = self._upload(arr)

@@ -68,6 +68,14 @@
 //     a window, more than two windows' chains. Where steps are contiguous
 //     each thread copies its own lane's chunks, so no barrier separates
 //     two windows.
+//   - Raw bytes in, where the caller passes the byte-to-class map
+//     (class_of): each CTA keeps a 256-entry table of row offsets in shared
+//     memory, row_of(class_of[b]) for every byte b, and a window's ids
+//     become rows by one shared load each, in the same straight-line block
+//     that reads them from the ring, off the chain. The map costs the card
+//     no pass of its own over the chunk and no ids array. Its own
+//     instantiations (MAP): the launches without it keep their code, shared
+//     memory and routes.
 //   - One thread per lane, 128 lanes per CTA, at most 128 registers a lane
 //     so that four CTAs fit an SM: a narrower CTA would use more SMs but
 //     each CTA fills the whole table with fewer threads, and the chain of
@@ -90,8 +98,11 @@ constexpr int LANE_HIST_MAX_STATES = 64;   // private rows: 512 bytes a state
 constexpr int CTAS_PER_SM = 4;  // at 128 registers a lane: 65,536 lanes (512 CTAs) are
                                 // resident at once on 132 SMs
 
+constexpr int BYTES = 256;  // entries of the byte-to-class map
+
 struct DfaArgs {
   Source cls;
+  const unsigned char* class_of;  // (256,) byte -> class, or null: cls holds class ids
   const int* table;
   const unsigned char* accept;
   int C, S;
@@ -123,11 +134,11 @@ __host__ __device__ inline size_t hist_words(int hist, int hist_rows, int S) {
 }
 
 struct Layout {
-  size_t ring, states, acc, table, bits, hist, total;
+  size_t ring, states, acc, table, bits, hist, rows, total;
 };
 
 __host__ __device__ inline Layout layout(int mode, int cls_bytes, int C, int S, int route,
-                                         int hist, int hist_rows, int ring) {
+                                         int hist, int hist_rows, int ring, bool mapped) {
   Layout L;
   size_t off = 0;
   L.ring = off;
@@ -143,6 +154,8 @@ __host__ __device__ inline Layout layout(int mode, int cls_bytes, int C, int S, 
   if (route != GLOBAL && mode != FINALS) off += align16(sizeof(unsigned) * ((size_t)S / 32 + 1));
   L.hist = off;
   off += align16(sizeof(int) * hist_words(hist, hist_rows, S));
+  L.rows = off;  // the byte map's row offsets: see fill_byte_rows()
+  if (mapped) off += align16(sizeof(int) * BYTES);
   L.total = off;
   return L;
 }
@@ -158,8 +171,9 @@ struct Plan {
 // load is a little shorter). The histogram of counts mode: a private row per
 // lane for few states, else a row per stream that a CTA can touch, else
 // atomics on the counts in global memory. Then the staging ring, as deep as
-// what is left allows (ring_depth()).
-Plan plan(int mode, int cls_bytes, int C, int S, int nb, int lanes_per_stream) {
+// what is left allows (ring_depth()). mapped: the launch reads raw bytes
+// through the byte-to-class map.
+Plan plan(int mode, int cls_bytes, int C, int S, int nb, int lanes_per_stream, bool mapped) {
   const Residency res(CTAS_PER_SM);
   const int n_streams = (nb + lanes_per_stream - 1) / lanes_per_stream;
   int rows = (LANES - 1) / lanes_per_stream + 2;
@@ -170,7 +184,8 @@ Plan plan(int mode, int cls_bytes, int C, int S, int nb, int lanes_per_stream) {
     for (int h : hists) {
       if (mode != COUNTS && h != HIST_GLOBAL) continue;
       if (h == HIST_LANE && S > LANE_HIST_MAX_STATES) continue;
-      if (res.resident(layout(mode, cls_bytes, C, S, route, h, rows, 2).total) > 0) return h;
+      if (res.resident(layout(mode, cls_bytes, C, S, route, h, rows, 2, mapped).total) > 0)
+        return h;
     }
     return -1;
   };
@@ -181,12 +196,12 @@ Plan plan(int mode, int cls_bytes, int C, int S, int nb, int lanes_per_stream) {
   for (int r : routes) {
     const int h = r == SMEM16 && S > NARROW_MAX_STATES ? -1 : hist_for(r);
     if (h < 0) continue;
-    int n = res.resident(layout(mode, cls_bytes, C, S, r, h, rows, 2).total);
+    int n = res.resident(layout(mode, cls_bytes, C, S, r, h, rows, 2, mapped).total);
     if (n > res.wanted(nb)) n = res.wanted(nb);
     if (n > best) p.route = r, p.hist = h, best = n;
   }
   const int stage = stage_bytes(cls_bytes);
-  const size_t base = layout(mode, cls_bytes, C, S, p.route, p.hist, rows, 0).total;
+  const size_t base = layout(mode, cls_bytes, C, S, p.route, p.hist, rows, 0, mapped).total;
   // a table in global memory: every step waits on L2 or L1 in any case, and
   // what the ring does not take of the SM stays L1 cache for the table
   p.ring = p.route == GLOBAL ? 2 : ring_depth(res, base, stage, nb);
@@ -326,6 +341,24 @@ __device__ __forceinline__ int row_of(int c, int C, int S, int pitch) {
   return (int)min((unsigned)c, (unsigned)C) * pitch;
 }
 
+// The byte map's table in shared memory: rows[b] = row_of(class_of[b]), so
+// a byte outside the table's classes keeps the meaning of such a class id.
+template <int ROUTE>
+__device__ void fill_byte_rows(int* rows, const unsigned char* __restrict__ class_of, int C,
+                               int S) {
+  const int pitch = row_entries(S, sizeof(typename Entry<ROUTE>::type)) << Entry<ROUTE>::SHIFT;
+  for (int b = threadIdx.x; b < BYTES; b += LANES)
+    rows[b] = row_of<ROUTE>(__ldg(class_of + b), C, S, pitch);
+}
+
+// The row a staged element steps by: a class id's own (row_of), or with
+// the map (MAP, raw bytes) the byte's entry in the shared table rows.
+template <typename CT, int ROUTE, bool MAP>
+__device__ __forceinline__ int step_row(CT v, const int* rows, int C, int S, int pitch) {
+  if (MAP) return rows[(unsigned char)v];
+  return row_of<ROUTE>((int)v, C, S, pitch);
+}
+
 // Step one lane through a window whose rows are in registers, and read the
 // next window's class ids from the ring into those registers as it goes:
 // row[j] is free once step j has used it. Returns the value the lane
@@ -335,10 +368,10 @@ __device__ __forceinline__ int row_of(int c, int C, int S, int pitch) {
 // mask mode) and the counting (a predicated reduction on the state's
 // counter; HIST_SHARED: the counters are in shared memory) are independent
 // of it and fill the time it waits.
-template <typename CT, int MODE, int ROUTE, int PATH, bool HIST_SHARED>
+template <typename CT, int MODE, int ROUTE, bool MAP, int PATH, bool HIST_SHARED>
 __device__ __forceinline__ int run_window(int cur, int& from, int entry, int n, int n_next,
                                           int (&row)[WIN], const unsigned char* next_buf,
-                                          const WindowAddr& next_wa, unsigned tab,
+                                          const WindowAddr& next_wa, const int* rows, unsigned tab,
                                           const unsigned char* acc_of, const DfaArgs& a,
                                           int* s_states, unsigned char* s_acc,
                                           const HistRow& hist) {
@@ -357,7 +390,8 @@ __device__ __forceinline__ int run_window(int cur, int& from, int entry, int n, 
   for (int j = 0; j < WIN; ++j) {
     const int r = row[j];
     if (HOT || j < n_next)
-      row[j] = row_of<ROUTE>((int)staged<CT, PATH == HOT_SF>(next_buf, next_wa, j), C, S, pitch);
+      row[j] = step_row<CT, ROUTE, MAP>(staged<CT, PATH == HOT_SF>(next_buf, next_wa, j), rows,
+                                        C, S, pitch);
     if (!HOT && j >= n) continue;
     int next, state = cur;
     unsigned hit = 0;
@@ -414,16 +448,17 @@ __device__ void merge_lane_rows(const int* s_hist, const DfaArgs& a, int lane0) 
   }
 }
 
-template <typename CT, int MODE, int ROUTE>
+template <typename CT, int MODE, int ROUTE, bool MAP>
 __global__ void __launch_bounds__(LANES, CTAS_PER_SM) dfa_chain_kernel(DfaArgs a) {
   constexpr int ES = sizeof(CT);
   constexpr int STAGE = stage_bytes(ES);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(MODE, ES, a.C, a.S, ROUTE, a.hist, a.hist_rows, a.ring);
+  const Layout L = layout(MODE, ES, a.C, a.S, ROUTE, a.hist, a.hist_rows, a.ring, MAP);
   unsigned char* ring = smem + L.ring;
   int* s_states = reinterpret_cast<int*>(smem + L.states);
   unsigned char* s_acc = smem + L.acc;
   int* s_hist = reinterpret_cast<int*>(smem + L.hist);
+  int* s_rows = reinterpret_cast<int*>(smem + L.rows);
   const int S = a.S;
   const int lane0 = blockIdx.x * LANES;
   const int lane = lane0 + threadIdx.x;
@@ -452,6 +487,7 @@ __global__ void __launch_bounds__(LANES, CTAS_PER_SM) dfa_chain_kernel(DfaArgs a
     fill_table<ROUTE>(reinterpret_cast<typename Entry<ROUTE>::type*>(smem + L.table),
                       a.table, a.C, S, bits);
   }
+  if (MAP) fill_byte_rows<ROUTE>(s_rows, a.class_of, a.C, S);
   if (MODE == COUNTS)
     for (int k = threadIdx.x; k < (int)hist_words(a.hist, a.hist_rows, S); k += LANES)
       s_hist[k] = 0;
@@ -482,7 +518,7 @@ __global__ void __launch_bounds__(LANES, CTAS_PER_SM) dfa_chain_kernel(DfaArgs a
   // With steps contiguous there is no barrier between windows either.
   int row[WIN];
   wait_next_window(a.ring);  // this thread's copies of window 0 have landed (of 1 too)
-  __syncthreads();           // everyone's have, and the table is filled
+  __syncthreads();           // everyone's have, and the tables are filled
   {
     const WindowAddr wa = stager.addr(0);
     const int pitch = row_entries(S, sizeof(typename Entry<ROUTE>::type))
@@ -490,7 +526,8 @@ __global__ void __launch_bounds__(LANES, CTAS_PER_SM) dfa_chain_kernel(DfaArgs a
 #pragma unroll
     for (int j = 0; j < WIN; ++j)
       row[j] = live && j < steps
-                   ? row_of<ROUTE>((int)staged<CT>(ring, wa, j), a.C, S, pitch) : 0;
+                   ? step_row<CT, ROUTE, MAP>(staged<CT>(ring, wa, j), s_rows, a.C, S, pitch)
+                   : 0;
   }
   for (int w = 0; w < n_win; ++w) {
     const int n = steps_of(w);
@@ -517,17 +554,21 @@ __global__ void __launch_bounds__(LANES, CTAS_PER_SM) dfa_chain_kernel(DfaArgs a
       // take the predicated path for every window
       const bool shared_hist = MODE != COUNTS || hist.in_shared;
       if (hot && shared_hist && stager.steps_fast)
-        cur = run_window<CT, MODE, ROUTE, HOT_SF, true>(cur, from, entry, n, n_next, row, buf, wa,
-                                                        tab, acc_of, a, s_states, s_acc, hist);
+        cur = run_window<CT, MODE, ROUTE, MAP, HOT_SF, true>(
+            cur, from, entry, n, n_next, row, buf, wa, s_rows, tab, acc_of, a, s_states, s_acc,
+            hist);
       else if (hot && shared_hist)
-        cur = run_window<CT, MODE, ROUTE, HOT_LF, true>(cur, from, entry, n, n_next, row, buf, wa,
-                                                        tab, acc_of, a, s_states, s_acc, hist);
+        cur = run_window<CT, MODE, ROUTE, MAP, HOT_LF, true>(
+            cur, from, entry, n, n_next, row, buf, wa, s_rows, tab, acc_of, a, s_states, s_acc,
+            hist);
       else if (shared_hist)
-        cur = run_window<CT, MODE, ROUTE, EDGE, true>(cur, from, entry, n, n_next, row, buf, wa,
-                                                      tab, acc_of, a, s_states, s_acc, hist);
+        cur = run_window<CT, MODE, ROUTE, MAP, EDGE, true>(
+            cur, from, entry, n, n_next, row, buf, wa, s_rows, tab, acc_of, a, s_states, s_acc,
+            hist);
       else
-        cur = run_window<CT, MODE, ROUTE, EDGE, false>(cur, from, entry, n, n_next, row, buf, wa,
-                                                       tab, acc_of, a, s_states, s_acc, hist);
+        cur = run_window<CT, MODE, ROUTE, MAP, EDGE, false>(
+            cur, from, entry, n, n_next, row, buf, wa, s_rows, tab, acc_of, a, s_states, s_acc,
+            hist);
     }
     if (MODE == FULL || MODE == MASK) {  // the per-step outputs, stored coalesced
       __syncthreads();
@@ -555,20 +596,20 @@ __global__ void __launch_bounds__(LANES, CTAS_PER_SM) dfa_chain_kernel(DfaArgs a
   }
 }
 
-template <typename CT, int MODE>
+template <typename CT, int MODE, bool MAP>
 int launch(const DfaArgs& a, cudaStream_t st) {
-  const Plan p = plan(MODE, sizeof(CT), a.C, a.S, a.cls.nb, a.lanes_per_stream);
+  const Plan p = plan(MODE, sizeof(CT), a.C, a.S, a.cls.nb, a.lanes_per_stream, MAP);
   DfaArgs b = a;
   b.hist = p.hist;
   b.hist_rows = p.hist_rows;
   b.ring = p.ring;
   switch (p.route) {
     case SMEM32:
-      return launch_chain(dfa_chain_kernel<CT, MODE, SMEM32>, b, b.cls.nb, p.smem, st);
+      return launch_chain(dfa_chain_kernel<CT, MODE, SMEM32, MAP>, b, b.cls.nb, p.smem, st);
     case SMEM16:
-      return launch_chain(dfa_chain_kernel<CT, MODE, SMEM16>, b, b.cls.nb, p.smem, st);
+      return launch_chain(dfa_chain_kernel<CT, MODE, SMEM16, MAP>, b, b.cls.nb, p.smem, st);
   }
-  return launch_chain(dfa_chain_kernel<CT, MODE, GLOBAL>, b, b.cls.nb, p.smem, st, true);
+  return launch_chain(dfa_chain_kernel<CT, MODE, GLOBAL, MAP>, b, b.cls.nb, p.smem, st, true);
 }
 
 template <int MODE>
@@ -577,19 +618,22 @@ int dispatch(const DfaArgs& a, int cls_bytes, cudaStream_t st) {
   // one stride 1)
   if (a.cls.ss != 1 && a.cls.ls != 1) return (int)cudaErrorInvalidValue;
   if (a.S < 1 || a.C < 1) return (int)cudaErrorInvalidValue;
+  if (a.class_of) return cls_bytes == 1 ? launch<uint8_t, MODE, true>(a, st)
+                                        : (int)cudaErrorInvalidValue;  // raw bytes only
   switch (cls_bytes) {
-    case 1: return launch<uint8_t, MODE>(a, st);
-    case 2: return launch<int16_t, MODE>(a, st);
-    case 4: return launch<int32_t, MODE>(a, st);
+    case 1: return launch<uint8_t, MODE, false>(a, st);
+    case 2: return launch<int16_t, MODE, false>(a, st);
+    case 4: return launch<int32_t, MODE, false>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-DfaArgs dfa_args(const void* cls, long long cls_ls, long long cls_ss, const int* table,
-                 const unsigned char* accept, int C, int S, const int* entries, int nb,
-                 int steps, int* finals) {
+DfaArgs dfa_args(const void* cls, long long cls_ls, long long cls_ss,
+                 const unsigned char* class_of, const int* table, const unsigned char* accept,
+                 int C, int S, const int* entries, int nb, int steps, int* finals) {
   DfaArgs a = {};
   a.cls = Source{cls, cls_ls, cls_ss, nb, steps};
+  a.class_of = class_of;
   a.table = table;
   a.accept = accept;
   a.C = C;
@@ -605,13 +649,15 @@ DfaArgs dfa_args(const void* cls, long long cls_ls, long long cls_ss, const int*
 
 // K1: finals (states == acc == NULL), full (both set) or mask (acc only).
 // cls and the outputs are addressed by (lane, step) strides in elements; one
-// of cls's strides must be 1.
+// of cls's strides must be 1. class_of: NULL (cls holds class ids), or the
+// (256,) byte-to-class map, and cls holds raw bytes (cls_bytes 1).
 extern "C" int dfa_chain(const void* cls, int cls_bytes, long long cls_ls, long long cls_ss,
                          const int* table, const unsigned char* accept, int C, int S,
                          const int* entries, int nb, int steps, int* finals, int* states,
                          unsigned char* acc, long long out_ls, long long out_ss,
-                         void* stream) {
-  DfaArgs a = dfa_args(cls, cls_ls, cls_ss, table, accept, C, S, entries, nb, steps, finals);
+                         const unsigned char* class_of, void* stream) {
+  DfaArgs a = dfa_args(cls, cls_ls, cls_ss, class_of, table, accept, C, S, entries, nb, steps,
+                       finals);
   a.states = states;
   a.acc = acc;
   a.out_ls = out_ls;
@@ -625,12 +671,15 @@ extern "C" int dfa_chain(const void* cls, int cls_bytes, long long cls_ls, long 
 
 // K2: finals plus counts[stream, state] += accept visits, where lane n
 // belongs to stream n / lanes_per_stream. counts must be zeroed by the caller.
+// class_of as in dfa_chain.
 extern "C" int dfa_chain_counts(const void* cls, int cls_bytes, long long cls_ls,
                                 long long cls_ss, const int* table,
                                 const unsigned char* accept, int C, int S,
                                 const int* entries, int nb, int steps, int* finals,
-                                int* counts, int lanes_per_stream, void* stream) {
-  DfaArgs a = dfa_args(cls, cls_ls, cls_ss, table, accept, C, S, entries, nb, steps, finals);
+                                int* counts, int lanes_per_stream,
+                                const unsigned char* class_of, void* stream) {
+  DfaArgs a = dfa_args(cls, cls_ls, cls_ss, class_of, table, accept, C, S, entries, nb, steps,
+                       finals);
   a.counts = counts;
   a.lanes_per_stream = lanes_per_stream;
   a.n_streams = (nb + lanes_per_stream - 1) / lanes_per_stream;
@@ -641,10 +690,11 @@ extern "C" int dfa_chain_counts(const void* cls, int cls_bytes, long long cls_ls
 // memory, 1 shared uint32 entries, 2 shared uint16 entries), bits 2-3 = the
 // histogram of counts mode (0 atomics on global memory, 1 a shared row per
 // stream, 2 a shared row per lane), bits 4-7 = the windows in the staging
-// ring. mode: 0 finals, 1 full, 2 mask, 3 counts.
+// ring. mode: 0 finals, 1 full, 2 mask, 3 counts. mapped: a launch given
+// the byte-to-class map.
 extern "C" int dfa_chain_route(int mode, int cls_bytes, int C, int S, int nb,
-                               int lanes_per_stream) {
-  const Plan p = plan(mode, cls_bytes, C, S, nb, lanes_per_stream);
+                               int lanes_per_stream, int mapped) {
+  const Plan p = plan(mode, cls_bytes, C, S, nb, lanes_per_stream, mapped != 0);
   return p.route | (p.hist << 2) | (p.ring << 4);
 }
 

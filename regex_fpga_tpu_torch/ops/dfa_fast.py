@@ -133,12 +133,6 @@ def chain_pass_counts(tables: DfaTables, cls_seq, entries):
     return dfa_chain_counts(tables.table, tables.accept, cls_seq, entries)
 
 
-def _chain_pass_counts_multi(tables: DfaTables, cls_seq, entries, n: int):
-    """Counting pass with per-stream counts (N, S); lanes are stream-major."""
-    return dfa_chain_counts(tables.table, tables.accept, cls_seq, entries,
-                            num_streams=n)
-
-
 class _Lanes(NamedTuple):
     """The chain lanes of a scan, stream-major: ``start`` (NB,) int32 on
     the device, the start state of each lane's stream, and ``per_stream``
@@ -229,36 +223,42 @@ def _jacobi(round_fn, out, verdict: _Verdict, lanes: _Lanes, max_iters: int):
 
 
 def _scan(tables: DfaTables, classes: torch.Tensor, lanes: _Lanes, emit: str,
-          max_iters: int, overlap: int):
+          max_iters: int, overlap: int, class_of=None):
     """The k=1 engines over (L,) or (N, L) ``classes``, a block a lane
     (``lanes.per_stream`` blocks a stream): the speculation, the
     output pass in ``emit`` mode as the first round, and after a miss the
     Jacobi rounds on finals passes and the output pass again from their
     entries (``iterations``: 1 on the speculation path, else the rounds +
-    1, as the JAX engine counts). Returns (the output pass's outputs, its
-    verdict, converged, iterations, domain_ok)."""
+    1, as the JAX engine counts). With ``class_of`` every pass reads
+    ``classes`` as raw bytes and maps them itself. Returns (the output
+    pass's outputs, its verdict, converged, iterations, domain_ok)."""
     if classes.shape[-1] % lanes.per_stream:
         raise ValueError("stream length must be divisible by num_blocks")
     blocks = classes.reshape(lanes.start.shape[0], -1)
     cls_seq = blocks.T  # (B, NB) columns over block-major storage
+    table, accept = tables.table, tables.accept
+
+    def finals_pass(cols, entries):
+        return dfa_chain(table, accept, cols, entries, "finals",
+                         class_of=class_of)[0]
 
     def output(entries):
-        if emit == "full":
-            out = chain_pass_full(tables, cls_seq, entries)
-            return out, out[:2], ()
+        if emit == "counts":
+            out = dfa_chain_counts(table, accept, cls_seq, entries,
+                                   blocks.shape[0] // lanes.per_stream,
+                                   class_of=class_of)
+            return out, out[:1], out[1:]
+        out = dfa_chain(table, accept, cls_seq, entries, emit,
+                        class_of=class_of)
         if emit == "mask":
-            out = chain_pass_mask(tables, cls_seq, entries)
-            return out, out[:1], ()
-        out = _chain_pass_counts_multi(tables, cls_seq, entries,
-                                       blocks.shape[0] // lanes.per_stream)
-        return out, out[:1], out[1:]
+            out = (out[0], out[2])
+        return out, out[:-1], ()
 
     def finals_only(entries):
-        return (chain_pass_finals(tables, cls_seq, entries),), (), ()
+        return (finals_pass(cls_seq, entries),), (), ()
 
     answer = emit == "counts"
-    entries = _speculate(lambda cols, e: chain_pass_finals(tables, cols, e),
-                         blocks, lanes, overlap)
+    entries = _speculate(finals_pass, blocks, lanes, overlap)
     out, verdict = _round(output, entries, lanes, answer)
     converged, it = verdict.moved == 0, 1
     if not converged:
@@ -279,6 +279,8 @@ def dfa_scan_fast(
     max_iters: int = 16,
     emit: str = "full",
     overlap: int = 64,
+    *,
+    class_of: torch.Tensor | None = None,
 ) -> FastScanResult:
     """Scan a class stream (L,) whose length divides into ``num_blocks``.
 
@@ -286,13 +288,16 @@ def dfa_scan_fast(
     "mask" only the accept bits, "counts" only the per-state accept-visit
     counts (read with the verdict). ``classes`` may be uint8, int16 or int32
     and lies on the device that runs the scan; the final state, the counts
-    and ``domain_ok`` come back on the host."""
+    and ``domain_ok`` come back on the host. With ``class_of`` ((256,)
+    uint8, the tables' byte-to-class map) ``classes`` holds the raw bytes
+    (uint8) and every pass maps them itself, with the results of the scan
+    over ``class_of[classes]``."""
     if emit not in ("full", "mask", "counts"):
         raise ValueError(f"emit must be full, mask or counts, got {emit!r}")
     lanes = _Lanes(torch.full((num_blocks,), start, dtype=torch.int32,
                               device=classes.device), num_blocks)
     out, verdict, converged, it, ok = _scan(tables, classes, lanes, emit,
-                                            max_iters, overlap)
+                                            max_iters, overlap, class_of)
     # (B, NB) block-major storage: .T.reshape(-1) is stream order, no copy
     return FastScanResult(
         final_state=torch.from_numpy(verdict.final_states.reshape(())),
@@ -312,6 +317,8 @@ def dfa_scan_fast_multi(
     max_iters: int = 16,
     emit: str = "counts",
     overlap: int = 64,
+    *,
+    class_of: torch.Tensor | None = None,
 ) -> MultiScanResult:
     """Batch scan of N equal-length independent streams, ``classes`` (N, L),
     in one chain pass: each stream splits into ``num_blocks`` blocks and the
@@ -321,7 +328,7 @@ def dfa_scan_fast_multi(
 
     emit="counts": per-stream per-state histograms; emit="full": per-stream
     (N, L) states and match masks. The final states and the counts come
-    back on the host."""
+    back on the host. ``class_of`` as in ``dfa_scan_fast``."""
     if emit not in ("full", "counts"):
         raise ValueError(f"emit must be full or counts, got {emit!r}")
     n, l = classes.shape
@@ -329,7 +336,7 @@ def dfa_scan_fast_multi(
     lanes = _Lanes(starts_v.reshape(-1).expand(n).repeat_interleave(num_blocks),
                    num_blocks)
     out, verdict, converged, it, ok = _scan(tables, classes, lanes, emit,
-                                            max_iters, overlap)
+                                            max_iters, overlap, class_of)
     return MultiScanResult(
         final_states=torch.from_numpy(verdict.final_states),
         counts=(torch.from_numpy(verdict.answer.reshape(n, -1))

@@ -20,6 +20,11 @@ stream is read in place, and the full/mask outputs are then stored
 block-major too, so ``states.T.reshape(-1)`` is the stream order without a
 copy. A view with neither stride 1 is made contiguous first.
 
+K1 and K2 take raw bytes where the caller passes the byte-to-class map
+``class_of`` ((256,) uint8): the kernel maps each byte as it stages it, from
+a table in shared memory, and the plain versions map the bytes first. The
+results equal those of the same pass over ``class_of[bytes]``.
+
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors. Out-of-range states and classes step to state 0 and
 never accept, in both versions, as the JAX engines' one-hot lookup does.
@@ -62,10 +67,18 @@ MODES = ("finals", "full", "mask")
 _CLASS_DTYPES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
 
 
-def _check_args(table, accept, cls_seq, entries) -> tuple[int, int]:
+def _check_args(table, accept, cls_seq, entries, class_of=None) -> tuple[int, int]:
     """Validate a chain pass's inputs; returns (B, NB)."""
     dev = cls_seq.device
-    for name, t in (("table", table), ("accept", accept), ("entries", entries)):
+    named = [("table", table), ("accept", accept), ("entries", entries)]
+    if class_of is not None:
+        named.append(("class_of", class_of))
+        if (class_of.shape != (256,) or class_of.dtype != torch.uint8
+                or not class_of.is_contiguous()):
+            raise TypeError("class_of must be a contiguous (256,) uint8 tensor")
+        if cls_seq.dtype != torch.uint8:
+            raise TypeError(f"with class_of, cls_seq holds raw bytes (uint8), got {cls_seq.dtype}")
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, cls_seq on {dev}")
     if cls_seq.dim() != 2:
@@ -107,25 +120,34 @@ def _stream(device: torch.device) -> int:
 
 #: the span around a K1 or K2 launch that reads its table from global memory
 GLOBAL_TABLE_SPAN = "rf.engine.global_table"
+#: the span around a K1 or K2 launch that maps raw bytes itself (class_of)
+BYTE_MAP_SPAN = "rf.engine.byte_map"
 
 
 @functools.lru_cache(maxsize=256)
 def _table_in_global(mode: str, num_classes: int, num_states: int,
                      num_lanes: int, num_streams: int,
-                     class_dtype: torch.dtype) -> bool:
+                     class_dtype: torch.dtype, mapped: bool) -> bool:
     return dfa_chain_route(mode, num_classes, num_states, num_lanes,
-                           num_streams, class_dtype)["table"] == "global"
+                           num_streams, class_dtype, mapped)["table"] == "global"
 
 
-def _table_span(mode: str, cls_seq: torch.Tensor, c: int, s: int, nb: int,
-                num_streams: int = 1):
-    """``rf.engine.global_table`` around a launch whose route keeps the
-    table in global memory (the route cached per shape), while a profiler
-    records; else the shared null span."""
-    if torch.autograd._profiler_enabled() and _table_in_global(
-            mode, c, s, nb, num_streams, cls_seq.dtype):
-        return trace(GLOBAL_TABLE_SPAN)
-    return contextlib.nullcontext()
+def _launch_spans(mode: str, cls_seq: torch.Tensor, c: int, s: int, nb: int,
+                  num_streams: int = 1, mapped: bool = False):
+    """The spans of a launch, for its ``with``: while a profiler records,
+    ``rf.engine.byte_map`` where the launch is given the byte map, and
+    inside it ``rf.engine.global_table`` where its route keeps the table in
+    global memory (the route cached per shape), both open on return and
+    closed when the ``with`` ends; else a null context, after one flag
+    check."""
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    spans = contextlib.ExitStack()
+    if mapped:
+        spans.enter_context(trace(BYTE_MAP_SPAN))
+    if _table_in_global(mode, c, s, nb, num_streams, cls_seq.dtype, mapped):
+        spans.enter_context(trace(GLOBAL_TABLE_SPAN))
+    return spans
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -133,15 +155,18 @@ def _require_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"no kernel for tensors on {t.device}")
 
 
-def dfa_chain(table, accept, cls_seq, entries, mode: str = "finals"):
+def dfa_chain(table, accept, cls_seq, entries, mode: str = "finals", *,
+              class_of=None):
     """K1. Returns (finals (NB,) int32, states (B, NB) int32 or None,
     acc (B, NB) bool or None): ``mode`` "finals" returns finals only,
-    "full" all three, "mask" finals and acc."""
+    "full" all three, "mask" finals and acc. With ``class_of`` ((256,)
+    uint8), ``cls_seq`` holds raw bytes, mapped by the kernel."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    b, nb = _check_args(table, accept, cls_seq, entries)
+    b, nb = _check_args(table, accept, cls_seq, entries, class_of)
     if cls_seq.device.type == "cpu":
-        return dfa_chain_plain(table, accept, cls_seq, entries, mode)
+        return dfa_chain_plain(table, accept, cls_seq, entries, mode,
+                               class_of=class_of)
     _require_cuda(cls_seq)
     table, accept, cls_seq, entries = _device_args(table, accept, cls_seq,
                                                    entries)
@@ -152,7 +177,8 @@ def dfa_chain(table, accept, cls_seq, entries, mode: str = "finals"):
     out = states if states is not None else acc
     out_ls, out_ss = (out.stride(1), out.stride(0)) if out is not None else (0, 0)
     LAUNCHES["dfa_chain"] += 1
-    with torch.cuda.device(cls_seq.device), _table_span(mode, cls_seq, c, s, nb):
+    with torch.cuda.device(cls_seq.device), _launch_spans(
+            mode, cls_seq, c, s, nb, mapped=class_of is not None):
         rc = _build.library().dfa_chain(
             cls_seq.data_ptr(), _CLASS_DTYPES[cls_seq.dtype],
             cls_seq.stride(1), cls_seq.stride(0),
@@ -160,24 +186,28 @@ def dfa_chain(table, accept, cls_seq, entries, mode: str = "finals"):
             entries.data_ptr(), nb, b, finals.data_ptr(),
             states.data_ptr() if states is not None else None,
             acc.data_ptr() if acc is not None else None,
-            out_ls, out_ss, _stream(cls_seq.device),
+            out_ls, out_ss,
+            class_of.data_ptr() if class_of is not None else None,
+            _stream(cls_seq.device),
         )
     _build.check(rc, "dfa_chain")
     return finals, states, acc
 
 
 def dfa_chain_counts(table, accept, cls_seq, entries,
-                     num_streams: int | None = None):
+                     num_streams: int | None = None, *, class_of=None):
     """K2. Returns (finals (NB,) int32, counts int32): counts[s] is the
     number of steps taken from state s when s accepts (visits * accept).
     With ``num_streams`` N, lanes are grouped stream-major (NB/N lanes per
-    stream) and counts is (N, S); without it counts is (S,)."""
-    b, nb = _check_args(table, accept, cls_seq, entries)
+    stream) and counts is (N, S); without it counts is (S,). ``class_of``
+    as in ``dfa_chain``."""
+    b, nb = _check_args(table, accept, cls_seq, entries, class_of)
     n = 1 if num_streams is None else num_streams
     if n < 1 or nb % n:
         raise ValueError(f"{nb} lanes do not split into {n} streams")
     if cls_seq.device.type == "cpu":
-        return dfa_chain_counts_plain(table, accept, cls_seq, entries, num_streams)
+        return dfa_chain_counts_plain(table, accept, cls_seq, entries, num_streams,
+                                      class_of=class_of)
     _require_cuda(cls_seq)
     table, accept, cls_seq, entries = _device_args(table, accept, cls_seq,
                                                    entries)
@@ -185,14 +215,16 @@ def dfa_chain_counts(table, accept, cls_seq, entries,
     finals = torch.empty(nb, dtype=torch.int32, device=cls_seq.device)
     counts = torch.zeros((n, s), dtype=torch.int32, device=cls_seq.device)
     LAUNCHES["dfa_chain_counts"] += 1
-    with torch.cuda.device(cls_seq.device), _table_span("counts", cls_seq, c, s,
-                                                        nb, n):
+    with torch.cuda.device(cls_seq.device), _launch_spans(
+            "counts", cls_seq, c, s, nb, n, mapped=class_of is not None):
         rc = _build.library().dfa_chain_counts(
             cls_seq.data_ptr(), _CLASS_DTYPES[cls_seq.dtype],
             cls_seq.stride(1), cls_seq.stride(0),
             table.data_ptr(), accept.data_ptr(), c, s,
             entries.data_ptr(), nb, b, finals.data_ptr(),
-            counts.data_ptr(), max(nb // n, 1), _stream(cls_seq.device),
+            counts.data_ptr(), max(nb // n, 1),
+            class_of.data_ptr() if class_of is not None else None,
+            _stream(cls_seq.device),
         )
     _build.check(rc, "dfa_chain_counts")
     return finals, (counts if num_streams is not None else counts[0])
@@ -200,8 +232,11 @@ def dfa_chain_counts(table, accept, cls_seq, entries,
 
 def dfa_chain_route(mode: str, num_classes: int, num_states: int,
                     num_lanes: int = 1, num_streams: int = 1,
-                    class_dtype: torch.dtype = torch.uint8) -> dict:
-    """Where the kernel keeps its data for these shapes on the current card:
+                    class_dtype: torch.dtype = torch.uint8,
+                    mapped: bool = False) -> dict:
+    """Where the kernel keeps its data for these shapes on the current card
+    (``mapped``: for a launch given the byte map, whose table of 256 rows
+    takes 1 KB of shared memory besides):
     {"table": "shared uint16" | "shared uint32" | "global", "table_smem":
     bool, "accept_folded": bool (the accept bit rides in the table entry: one
     load per step), "hist": "lane rows" | "stream rows" | "global" (counts
@@ -211,7 +246,7 @@ def dfa_chain_route(mode: str, num_classes: int, num_states: int,
     lib = _build.library()
     r = lib.dfa_chain_route(code, _CLASS_DTYPES[class_dtype], num_classes,
                             num_states, num_lanes,
-                            max(num_lanes // num_streams, 1))
+                            max(num_lanes // num_streams, 1), int(mapped))
     table = ("global", "shared uint32", "shared uint16")[r & 3]
     hist = ("global", "stream rows", "lane rows")[(r >> 2) & 3]
     return {"table": table, "table_smem": table != "global",
@@ -426,8 +461,16 @@ def _accepts(accept, s_dim: int, state):
     return ok & _gather(accept, torch.where(ok, state, 0).long())
 
 
-def dfa_chain_plain(table, accept, cls_seq, entries, mode: str = "finals"):
-    """Plain-torch K1: one loop iteration and a gather per step."""
+def _mapped(cls_seq, class_of):
+    """Raw bytes as class ids through ``class_of``, or class ids as they are."""
+    return cls_seq if class_of is None else _gather(class_of, cls_seq.long())
+
+
+def dfa_chain_plain(table, accept, cls_seq, entries, mode: str = "finals", *,
+                    class_of=None):
+    """Plain-torch K1: the bytes mapped first where ``class_of`` is
+    given, then one loop iteration and a gather per step."""
+    cls_seq = _mapped(cls_seq, class_of)
     b, nb = cls_seq.shape
     c_dim, s_dim = table.shape
     flat = table.reshape(-1)
@@ -447,8 +490,10 @@ def dfa_chain_plain(table, accept, cls_seq, entries, mode: str = "finals"):
 
 
 def dfa_chain_counts_plain(table, accept, cls_seq, entries,
-                           num_streams: int | None = None):
-    """Plain-torch K2: per-step accept visits added into an (N*S,) count."""
+                           num_streams: int | None = None, *, class_of=None):
+    """Plain-torch K2: the bytes mapped first where ``class_of`` is
+    given, then per-step accept visits added into an (N*S,) count."""
+    cls_seq = _mapped(cls_seq, class_of)
     b, nb = cls_seq.shape
     c_dim, s_dim = table.shape
     n = 1 if num_streams is None else num_streams

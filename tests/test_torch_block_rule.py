@@ -209,8 +209,8 @@ def test_256_classes_match_jax(n):
         assert_counts_equal(tm.scan(data, collect_positions=collect),
                             jm.scan(data, collect_positions=collect))
     assert tm.count(data) == jm.count(data)
-    _, ids, nb, lead = tm._chunk_ids(tm._upload(data[:997]))
-    assert (ids.dtype, nb, lead) == (tapi.torch.int16, 8, 3)
+    _, ids, nb, lead, class_of = tm._chunk_ids(tm._upload(data[:997]))
+    assert (ids.dtype, nb, lead, class_of) == (tapi.torch.int16, 8, 3, None)
 
 
 def test_parity_falls_back_exactly_where_jax_runs_one_lane():
@@ -239,7 +239,7 @@ def test_front_padding_keeps_the_speculation():
                        min_block_bytes=4, chunk_bytes=CB)
     jm, tm = regexes(rb"[0-9]", cfg)
     data = np.concatenate([stream_of(4096, 9), np.frombuffer(b"7", np.uint8)])
-    _, ids, nb, lead = tm._chunk_ids(tm._upload(data))
+    _, ids, nb, lead, _ = tm._chunk_ids(tm._upload(data))
     assert (nb, lead, ids.shape[0]) == (1024, 1023, 5120)
     got, want = tm.scan(data), jm.scan(data)
     assert_counts_equal(got, want)
@@ -250,12 +250,14 @@ def test_front_padding_keeps_the_speculation():
 
 def test_lane_divisible_chunk_takes_the_unpadded_route():
     """A chunk whose length the lanes divide: the matcher's own tables,
-    uint8 ids, no stall tables built, iterations as JAX reports them."""
+    the raw bytes with the byte map for the kernels to map them, no stall
+    tables built, iterations as JAX reports them."""
     jm, tm = tokenizers()
     data = stream_of(2 * CB, 1)
-    tables, ids, nb, lead = tm._chunk_ids(tm._upload(data[:CB]))
-    assert (tables is tm.tables, ids.dtype, nb, lead) == \
-        (True, tapi.torch.uint8, 64, 0)
+    raw = tm._upload(data[:CB])
+    tables, ids, nb, lead, class_of = tm._chunk_ids(raw)
+    assert (tables is tm.tables, ids is raw, class_of is tm._class_lut, nb, lead) == \
+        (True, True, True, 64, 0)
     got, want = tm.scan(data), jm.scan(data)
     assert_counts_equal(got, want)
     assert (got.metrics.iterations, got.metrics.converged) == \

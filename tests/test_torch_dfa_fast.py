@@ -86,7 +86,8 @@ def test_chain_passes_match_jax(seed, s, block_major, dtype):
     for got, want in zip(tf.chain_pass_counts(pt, cls_t, ent_t),
                          jf.chain_pass_counts(jt, cj, ej)):
         assert_eq(got, want)
-    got = tf._chain_pass_counts_multi(pt, cls_t, ent_t, n)
+    got = hopper_dfa.dfa_chain_counts(pt.table, pt.accept, cls_t, ent_t,
+                                      num_streams=n)
     want = jf._chain_pass_counts_multi(jt, cj, ej, n)
     assert got[1].shape == (n, s)
     for g, w in zip(got, want):
@@ -526,6 +527,16 @@ def test_chain_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         hopper_dfa.dfa_chain_counts(pt.table, pt.accept, cls, ent,
                                     num_streams=4)
+    byte_map = pt.class_of.to(torch.uint8)
+    with pytest.raises(TypeError, match="raw bytes"):  # the map takes bytes
+        hopper_dfa.dfa_chain(pt.table, pt.accept, cls.to(torch.int16), ent,
+                             class_of=byte_map)
+    for bad in (byte_map[:255], byte_map.int(), byte_map.repeat(2)[::2]):
+        with pytest.raises(TypeError, match="class_of"):
+            hopper_dfa.dfa_chain_counts(pt.table, pt.accept, cls, ent, class_of=bad)
+    with pytest.raises(ValueError, match="class_of is on meta"):
+        hopper_dfa.dfa_chain(pt.table, pt.accept, cls, ent,
+                             class_of=byte_map.to("meta"))
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -542,3 +553,182 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="no kernel"):
         hopper_dfa.dfa_chain_counts(meta.table, meta.accept, cls, ent)
     assert hopper_dfa.LAUNCHES == before
+
+
+# ------------------------------------------------ raw bytes through the map
+
+
+def byte_map_case(which):
+    """(port tables, a (256,) uint8 byte map, raw bytes on 64 lanes) for
+    the mapped scans: a random automaton; the same with bytes mapped to
+    classes at or past C (they step to state 0 and never accept); the reset
+    counter, whose guesses miss (Jacobi rounds); the parity counter over
+    blocks of odd length, which never synchronizes."""
+    rng = np.random.default_rng(len(which))
+    if which in ("random", "past the classes"):
+        _, pt = both_tables(*random_dfa_table(rng, 40, 5))
+        stream = rng.integers(0, 256, size=4096).astype(np.uint8)
+    elif which == "parity":
+        _, pt = both_tables(*unsynced_tables(which))
+        stream = np.zeros(127 * 64, np.uint8)
+    else:
+        _, pt = both_tables(*unsynced_tables(which))
+        stream = reset_counter_text(7, 4096 // 64, 64, resets=range(0, 64, 3))
+        stream = np.asarray(stream, np.uint8)[:4096]
+    class_of = pt.class_of.to(torch.uint8)
+    if which == "past the classes":
+        class_of = class_of.clone()
+        class_of[200:] = torch.arange(56, dtype=torch.uint8) % 2 * (255 - pt.num_classes) \
+            + pt.num_classes
+    return pt, class_of, torch.as_tensor(stream)
+
+
+@pytest.mark.parametrize("emit", ["full", "mask", "counts"])
+@pytest.mark.parametrize("which", ["random", "past the classes", "reset counter",
+                                   "parity"])
+def test_scan_fast_maps_raw_bytes_itself(emit, which):
+    """``dfa_scan_fast`` given the byte map over raw bytes equals
+    ``dfa_scan_fast`` over the mapped bytes: final state, states, mask,
+    counts, ``converged``, ``iterations`` and ``domain_ok``, where the guess
+    holds, where it misses (every Jacobi round and the speculation take the
+    map too), where the scan does not converge, and for bytes mapped to no
+    class of the table."""
+    pt, class_of, raw = byte_map_case(which)
+    want = tf.dfa_scan_fast(pt, class_of[raw.long()], num_blocks=64, emit=emit,
+                            max_iters=8)
+    got = tf.dfa_scan_fast(pt, raw, num_blocks=64, emit=emit, max_iters=8,
+                           class_of=class_of)
+    assert_fast_equal(got, want)
+    if which == "reset counter":
+        assert got.iterations >= 2 and got.converged
+    if which == "parity":
+        assert not got.converged
+    if which == "past the classes":
+        assert int((class_of[raw.long()] >= pt.num_classes).sum()) > 100
+    if which == "random":  # unmapped, the raw bytes read as other class ids
+        unmapped = tf.dfa_scan_fast(pt, raw, num_blocks=64, emit=emit, max_iters=8)
+        assert not all(torch.equal(g, w) for g, w in
+                       zip((got.final_state, got.counts, got.match_mask),
+                           (unmapped.final_state, unmapped.counts, unmapped.match_mask))
+                       if g is not None)
+
+
+@pytest.mark.parametrize("emit", ["full", "counts"])
+@pytest.mark.parametrize("which", ["random", "past the classes", "reset counter",
+                                   "parity"])
+def test_scan_fast_multi_maps_raw_bytes_itself(emit, which):
+    """``dfa_scan_fast_multi`` given the byte map over two rows of raw
+    bytes equals the same batch scan over the mapped bytes: final states,
+    counts, states, masks, ``converged``, ``iterations`` and
+    ``domain_ok``, each row's first lane pinned to its own start."""
+    pt, class_of, raw = byte_map_case(which)
+    rows = raw.reshape(2, -1)
+    kw = dict(num_blocks=32, starts=torch.tensor([0, 1]), emit=emit, max_iters=8)
+    want = tf.dfa_scan_fast_multi(pt, class_of[rows.long()], **kw)
+    got = tf.dfa_scan_fast_multi(pt, rows, class_of=class_of, **kw)
+    assert (got.converged, got.iterations, bool(got.domain_ok)) == \
+        (want.converged, want.iterations, bool(want.domain_ok))
+    for field in ("final_states", "counts", "match_mask", "states"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), field
+        if g is not None:
+            assert_eq(g, w)
+    if which == "parity":
+        assert not got.converged
+
+
+@pytest.mark.parametrize("which", ["random", "256 classes", "parity"])
+def test_batches_on_raw_bytes_match_jax(which, monkeypatch):
+    """An equal-length batch whose width the lanes divide hands its raw
+    bytes and the byte map to ``dfa_scan_fast_multi`` (no chunk padded),
+    and gives JAX's counts and final states; a ragged batch's chunks stay
+    mapped and padded by ``_chunk_ids``."""
+    rng = np.random.default_rng(7)
+    if which == "parity":
+        table, accept = unsynced_tables("parity")
+    else:
+        table, accept = random_dfa_table(rng, 24, 3)
+        if which == "random":  # bytes in 40 classes, not 256
+            table = table[rng.integers(0, 40, 256)]
+    dfa = CompiledDfa(table=table, accept=accept, start=0,
+                      dead=-1 if which == "parity" else 23)
+    cfg = EngineConfig(scan_backend="device", num_blocks=16,
+                       min_block_bytes=4, chunk_bytes=1024, max_iters=4)
+    tm = tapi.DfaMatcher(dfa, cfg, device="cpu")
+    jm = japi.DfaMatcher(dfa, cfg)
+    mapped = []
+    real_multi = tapi.dfa_scan_fast_multi
+
+    def spy(*args, **kw):
+        mapped.append(kw.get("class_of") is not None)
+        return real_multi(*args, **kw)
+    monkeypatch.setattr(tapi, "dfa_scan_fast_multi", spy)
+    batch = rng.integers(0, 256, size=(5, 2048)).astype(np.uint8)
+    counts, _, converged, finals = tm._scan_batch_counts(batch)
+    assert mapped == [True, True]
+    want = jm._scan_batch_counts(batch)
+    np.testing.assert_array_equal(counts, want[0])
+    np.testing.assert_array_equal(finals, want[3])
+    assert converged == bool(want[2])
+    mapped.clear()
+    rows = [batch[0], batch[1, :1500]]
+    np.testing.assert_array_equal(tm.scan(rows).counts, jm.scan(rows).counts)
+    assert mapped and not any(mapped)
+
+
+@pytest.fixture(scope="module")
+def tokenizer_dfas():
+    """The GPT-2 byte-level and the cl100k UTF-8 tokenizer automata (the
+    benchmark's two configurations), built once."""
+    import json
+    from pathlib import Path
+    conf = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                       / "cl100k-pretok-utf8.json").read_text())
+    return {"gpt2": tapi.compile_tokenizer(device="cpu").tok,
+            "cl100k": tapi.compile_tokenizer(conf["pat"], device="cpu",
+                                             **conf["port"]["kwargs"]).tok}
+
+
+@pytest.mark.parametrize("shorter", [0, 1])
+@pytest.mark.parametrize("name", ["gpt2", "cl100k"])
+def test_matcher_raw_byte_chunks_match_padded_ones(tokenizer_dfas, name, shorter,
+                                                   monkeypatch):
+    """``DfaMatcher`` chunks whose lanes divide them hand raw bytes and the
+    byte map to the chain kernels; the others are mapped and padded by
+    ``_chunk_ids``. On a corpus slice of three 16-KiB chunks and a 320-byte
+    tail (every chunk on raw bytes), and one byte shorter (the tail padded),
+    ``count()``, ``scan(collect_positions=True)`` and ``presplit()`` equal
+    those of a matcher whose 96 lanes divide no chunk (every chunk padded),
+    and the count a serial walk's."""
+    from benchmark import gen
+
+    text = np.frombuffer(b"".join(gen.documents("cpython-3.12.12-pydoc-topics")),
+                         np.uint8)
+    text = text[5000 : 5000 + 3 * (1 << 14) + 320 - shorter]
+    mapped = []
+    real_scan = tapi.dfa_scan_fast
+
+    def spy(*args, **kw):
+        mapped.append(kw.get("class_of") is not None)
+        return real_scan(*args, **kw)
+    monkeypatch.setattr(tapi, "dfa_scan_fast", spy)
+
+    def matcher(lanes):
+        cfg = EngineConfig(num_blocks=lanes, min_block_bytes=16, chunk_bytes=1 << 14,
+                           scan_backend="device")
+        return tapi.TokenizerMatcher(tokenizer_dfas[name], cfg, device="cpu")
+
+    raw, padded = matcher(64), matcher(96)
+    got = raw.scan(text, collect_positions=True)
+    assert mapped == [True, True, True, not shorter]
+    mapped.clear()
+    want = padded.scan(text, collect_positions=True)
+    assert mapped == [False] * 4
+    np.testing.assert_array_equal(got.counts, want.counts)
+    np.testing.assert_array_equal(got.match_positions[0], want.match_positions[0])
+    np.testing.assert_array_equal(raw.presplit(text), padded.presplit(text))
+    full = raw.tables.table[raw.tables.class_of.long()].numpy()
+    accept = raw.tables.accept.numpy()
+    counts, final = serial_counts(full, accept, text, raw.start)
+    assert raw.count(text) == padded.count(text) == counts.sum() + accept[final]
+    assert got.total == counts.sum() + accept[final]

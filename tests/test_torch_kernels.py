@@ -197,15 +197,113 @@ def test_dfa_chain_reads_block_tails_in_place(cuda, c, s, dtype, b, ov):
     assert torch.equal(got, want)
 
 
+#: the table route of a K1/K2 launch given the byte map, at 4,104 lanes, on
+#: each of the three routes: GPT-2's tokenizer shape, a Snort lazy-DFA
+#: snapshot's and cl100k's
+MAPPED_ROUTES = {(10, 23): "shared uint32", (83, 1025): "shared uint16",
+                 (111, 1899): "global"}
+
+
+def byte_map(rng, c, device):
+    """A (256,) uint8 byte map onto c classes, a twentieth of the bytes
+    sent past them (they step to state 0 and never accept)."""
+    m = rng.integers(0, c, size=256)
+    past = rng.random(256) < 0.05
+    m[past] = rng.integers(c, 256, size=int(past.sum()))
+    return torch.as_tensor(m.astype(np.uint8), device=device)
+
+
+def assert_same_passes(table, accept, raw, ent, class_of, streams):
+    """K1 in every mode and K2 (one stream, and ``streams``) over raw bytes
+    given the map equal the same kernels over the mapped ids."""
+    ids = class_of[raw.long()]
+    for mode in hopper_dfa.MODES:
+        got = hopper_dfa.dfa_chain(table, accept, raw, ent, mode, class_of=class_of)
+        want = hopper_dfa.dfa_chain(table, accept, ids, ent, mode)
+        for g, w in zip(got, want):
+            if g is not None:
+                assert torch.equal(g, w), mode
+    for n in (None, streams):
+        got = hopper_dfa.dfa_chain_counts(table, accept, raw, ent, n, class_of=class_of)
+        want = hopper_dfa.dfa_chain_counts(table, accept, ids, ent, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b", [33, 100, 1031])
+@pytest.mark.parametrize("block_major", [True, False])
+@pytest.mark.parametrize("c,s", list(MAPPED_ROUTES))
+def test_dfa_chain_maps_raw_bytes(cuda, c, s, block_major, b):
+    """K1 and K2 given the byte map over raw bytes equal the same kernels
+    over the mapped class ids, bit for bit, on the uint32, uint16 and
+    global-table routes, in both input orders and at step counts that are
+    not a multiple of the 32-step window; the map takes the route the
+    shape takes without it."""
+    rng = np.random.default_rng(b + s)
+    nb = 4104
+    table, accept = random_table(rng, c, s, cuda)
+    class_of = byte_map(rng, c, cuda)
+    raw = class_columns(rng, 256, b, nb, torch.uint8, block_major, cuda)
+    ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32), device=cuda)
+    for mode in ("finals", "counts"):
+        mapped = hopper_dfa.dfa_chain_route(mode, c, s, nb, mapped=True)
+        assert mapped["table"] == MAPPED_ROUTES[(c, s)]
+        assert mapped["table"] == hopper_dfa.dfa_chain_route(mode, c, s, nb)["table"]
+    assert_same_passes(table, accept, raw, ent, class_of, 8)
+
+
+@pytest.mark.parametrize("b,ov", [(1024, 64), (65, 64), (33, 33), (7, 5)])
+@pytest.mark.parametrize("c,s", list(MAPPED_ROUTES))
+def test_dfa_chain_maps_block_tails_in_place(cuda, c, s, b, ov):
+    """The speculation's strided view of raw bytes (the last ``ov`` bytes
+    of each lane's block, lanes B apart): K1 and K2 given the byte map read
+    it in place and equal the same kernels over the mapped ids."""
+    rng = np.random.default_rng(b * ov + s + 1)
+    nb = 4104
+    table, accept = random_table(rng, c, s, cuda)
+    class_of = byte_map(rng, c, cuda)
+    blocks = torch.as_tensor(rng.integers(0, 256, size=(nb, b)).astype(np.uint8),
+                             device=cuda)
+    tails = blocks[:, b - ov:].transpose(0, 1)
+    ent = torch.as_tensor(rng.integers(0, s, size=nb).astype(np.int32), device=cuda)
+    assert hopper_dfa._device_args(table, accept, tails, ent)[2] is tails
+    assert_same_passes(table, accept, tails, ent, class_of, 4)
+
+
+@pytest.mark.parametrize("c,s", sorted(set(ROUTES) | set(MAPPED_ROUTES)))
+def test_unmapped_launches_keep_their_routes(cuda, c, s):
+    """A launch that passes no map plans as ``mapped`` off says (the
+    default), which ``test_dfa_chain_route`` and
+    ``test_routes_follow_the_lane_count`` pin; on the main path's shapes a
+    mapped launch keeps the table and histogram routes, its 1 KB of shared
+    memory taking at most ring windows."""
+    for mode, streams in (("finals", 1), ("full", 1), ("mask", 1), ("counts", 4)):
+        for nb in (1024, 65536):
+            plain = hopper_dfa.dfa_chain_route(mode, c, s, nb, streams)
+            assert plain == hopper_dfa.dfa_chain_route(mode, c, s, nb, streams,
+                                                      torch.uint8, False)
+            if (c, s) not in MAPPED_ROUTES:
+                continue
+            mapped = hopper_dfa.dfa_chain_route(mode, c, s, nb, streams, mapped=True)
+            assert {k: v for k, v in mapped.items() if k != "ring"} == \
+                {k: v for k, v in plain.items() if k != "ring"}
+            assert mapped["ring"] <= plain["ring"]
+
+
 @pytest.mark.parametrize("guess", ["holds", "misses"])
 @pytest.mark.parametrize("engine,emit", [("fast", "counts"), ("fast", "mask"),
                                          ("fast", "full"), ("multi", "counts"),
-                                         ("multi", "full")])
+                                         ("multi", "full"), ("mapped", "counts"),
+                                         ("mapped", "mask"), ("mapped", "full"),
+                                         ("mapped multi", "counts"),
+                                         ("mapped multi", "full")])
 def test_scan_fast_on_card_matches_cpu(cuda, engine, emit, guess):
     """``dfa_scan_fast`` and ``dfa_scan_fast_multi`` on the card against
     the same scans on the CPU's plain passes, in every mode: the in-place
     speculation, the one read a round, and the Jacobi rounds after a miss
-    (a counter mod 3 that ``b`` resets, with a reset in only some blocks)."""
+    (a counter mod 3 that ``b`` resets, with a reset in only some blocks).
+    "mapped" and "mapped multi": the scan on the card over the raw text,
+    given the byte map, against the CPU's scan over the class ids."""
     from regex_fpga_tpu_torch.ops import dfa_fast
 
     table = np.empty((256, 3), dtype=np.int32)
@@ -225,12 +323,19 @@ def test_scan_fast_on_card_matches_cpu(cuda, engine, emit, guess):
     for dev in (cuda, torch.device("cpu")):
         tables = build_dfa_tables(table, accept, device=dev)
         cls = tables.class_of[torch.as_tensor(text, device=dev).long()].to(torch.uint8)
-        if engine == "fast":
+        if engine == "mapped" and dev == cuda:
+            res = dfa_fast.dfa_scan_fast(tables, torch.as_tensor(text[0], device=dev),
+                                         num_blocks=nb, emit=emit,
+                                         class_of=tables.class_of.to(torch.uint8))
+        elif engine in ("fast", "mapped"):
             res = dfa_fast.dfa_scan_fast(tables, cls[0], num_blocks=nb, emit=emit)
         else:
+            raw = engine == "mapped multi" and dev == cuda
             res = dfa_fast.dfa_scan_fast_multi(
-                tables, cls, num_blocks=nb, emit=emit,
-                starts=torch.tensor([0, 2], dtype=torch.int32, device=dev))
+                tables, torch.as_tensor(text, device=dev) if raw else cls,
+                num_blocks=nb, emit=emit,
+                starts=torch.tensor([0, 2], dtype=torch.int32, device=dev),
+                class_of=tables.class_of.to(torch.uint8) if raw else None)
         results.append(res)
     got, want = results
     assert got.iterations == want.iterations > (guess == "misses")

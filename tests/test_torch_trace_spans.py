@@ -173,11 +173,14 @@ def test_compile_span_wraps_the_build(tmp_path):
     assert tok.count(TEXT) == untraced.count(TEXT)
 
 
+@pytest.mark.parametrize("mapped", [False, True])
 @pytest.mark.parametrize("table", ["global", "shared uint16", "shared uint32"])
-def test_global_table_span_follows_the_route(table, monkeypatch, tmp_path):
+def test_global_table_span_follows_the_route(table, mapped, monkeypatch, tmp_path):
     """``rf.engine.global_table`` opens around a K1/K2 launch only where its
-    route keeps the table in global memory, asks for the route once per
-    shape, and costs no route lookup with no profiler."""
+    route keeps the table in global memory, asks for the route (of a launch
+    given the byte map, or not) once per shape, and costs no route lookup
+    with no profiler; ``rf.engine.byte_map`` opens around every launch given
+    the map, the table's span inside it."""
     from regex_fpga_tpu_torch.ops import hopper_dfa
 
     asked = []
@@ -189,17 +192,22 @@ def test_global_table_span_follows_the_route(table, monkeypatch, tmp_path):
     monkeypatch.setattr(hopper_dfa, "dfa_chain_route", route)
     hopper_dfa._table_in_global.cache_clear()
     cls = torch.zeros((4, 8), dtype=torch.uint8)
-    with hopper_dfa._table_span("counts", cls, 110, 1899, 8):
+    with hopper_dfa._launch_spans("counts", cls, 110, 1899, 8, mapped=mapped):
         pass
     assert asked == []
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(3):
-            with hopper_dfa._table_span("counts", cls, 110, 1899, 8):
+            with hopper_dfa._launch_spans("counts", cls, 110, 1899, 8, mapped=mapped):
                 pass
     hopper_dfa._table_in_global.cache_clear()
-    assert len(asked) == 1
-    names = [e["name"] for e in _events(prof, tmp_path)]
+    assert len(asked) == 1 and asked[0][-1] is mapped
+    events = _events(prof, tmp_path)
+    names = [e["name"] for e in events]
     assert names.count("rf.engine.global_table") == (3 if table == "global" else 0)
+    assert names.count("rf.engine.byte_map") == (3 if mapped else 0)
+    if mapped and table == "global":
+        table_span = ("rf.engine.global_table", ())
+        assert _tree(events) == (("rf.engine.byte_map", (table_span,)),) * 3
 
 
 def test_k2_count_reads_once_a_chunk(monkeypatch, tmp_path):
@@ -207,9 +215,11 @@ def test_k2_count_reads_once_a_chunk(monkeypatch, tmp_path):
     chunks) records one ``rf.device.readback`` a chunk, and each chunk's
     ``rf.engine.k1`` span holds its ``rf.engine.pass`` and the
     ``rf.engine.global_table`` spans of the speculation's and the pass's
-    launches. The route is the monkeypatched one of
-    ``test_global_table_span_follows_the_route``; on the CPU the plain
-    passes stand in for the launches, inside the span the route opens."""
+    launches, inside the ``rf.engine.byte_map`` span of a launch given the
+    byte map where the chunk's lanes divide it. The route is the
+    monkeypatched one of ``test_global_table_span_follows_the_route``; on
+    the CPU the plain passes stand in for the launches, inside the spans
+    the launch opens."""
     from pathlib import Path
 
     from regex_fpga_tpu_torch.ops import hopper_dfa
@@ -224,25 +234,33 @@ def test_k2_count_reads_once_a_chunk(monkeypatch, tmp_path):
     want = tok.count(TEXT)
     finals_pass, counts_pass = hopper_dfa.dfa_chain_plain, hopper_dfa.dfa_chain_counts_plain
 
-    def k1(table, accept, cls_seq, entries, mode):
-        with hopper_dfa._table_span(mode, cls_seq, *table.shape, cls_seq.shape[1]):
-            return finals_pass(table, accept, cls_seq, entries, mode)
+    def k1(table, accept, cls_seq, entries, mode, class_of):
+        with hopper_dfa._launch_spans(mode, cls_seq, *table.shape, cls_seq.shape[1],
+                                      mapped=class_of is not None):
+            return finals_pass(table, accept, cls_seq, entries, mode, class_of=class_of)
 
-    def k2(table, accept, cls_seq, entries, num_streams):
-        with hopper_dfa._table_span("counts", cls_seq, *table.shape, cls_seq.shape[1]):
-            return counts_pass(table, accept, cls_seq, entries, num_streams)
+    def k2(table, accept, cls_seq, entries, num_streams, class_of):
+        with hopper_dfa._launch_spans("counts", cls_seq, *table.shape, cls_seq.shape[1],
+                                      mapped=class_of is not None):
+            return counts_pass(table, accept, cls_seq, entries, num_streams,
+                               class_of=class_of)
     monkeypatch.setattr(hopper_dfa, "dfa_chain_route", lambda *a: {"table": "global"})
-    monkeypatch.setattr(hopper_dfa, "dfa_chain_plain", k1)
-    monkeypatch.setattr(hopper_dfa, "dfa_chain_counts_plain", k2)
+    monkeypatch.setattr(hopper_dfa, "dfa_chain_plain",
+                        lambda *a, class_of=None: k1(*a, class_of))
+    monkeypatch.setattr(hopper_dfa, "dfa_chain_counts_plain",
+                        lambda *a, class_of=None: k2(*a, class_of))
     hopper_dfa._table_in_global.cache_clear()
     try:
         got, events = _traced(lambda: tok.count(TEXT), tmp_path)
     finally:
         hopper_dfa._table_in_global.cache_clear()
     assert got == want
+    def chunk(table):
+        return ("rf.engine.k1", (UPLOAD, table, ("rf.engine.pass", (table,)), READBACK))
     table = ("rf.engine.global_table", ())
-    chunk = ("rf.engine.k1", (UPLOAD, table, ("rf.engine.pass", (table,)), READBACK))
-    assert _tree(events) == (("rf.api.count", (chunk,) * 3),)
+    mapped = ("rf.engine.byte_map", (table,))
+    # two whole 16-KiB chunks on raw bytes, the 2,032-byte tail padded
+    assert _tree(events) == (("rf.api.count", (chunk(mapped),) * 2 + (chunk(table),)),)
 
 
 # ---------------------------------------------------------------- the card
