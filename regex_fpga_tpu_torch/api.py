@@ -666,7 +666,8 @@ class DfaMatcher:
                         cur = ch.final_state
                 if diverged:  # non-synchronizing automaton: exact fallback
                     # over the whole stream (partial totals discarded)
-                    total += int(self.scan([stream]).counts.sum())
+                    with trace("rf.engine.rescan"):
+                        total += int(self.scan([stream]).counts.sum())
                     continue
                 if self.include_final_match and bool(self._accept_eof[cur]):
                     stream_total += 1
@@ -933,8 +934,9 @@ class DfaMatcher:
                 states.append(res.states)
                 cur = int(res.final_state)
             if main < len(chunk_bytes):
-                res = dfa_scan_serial(self.tables, chunk_bytes[main:],
-                                      start=cur)
+                with trace("rf.engine.fallback.serial"):
+                    res = dfa_scan_serial(self.tables, chunk_bytes[main:],
+                                          start=cur)
                 counts += res.counts
                 masks.append(res.match_mask)
                 states.append(res.states)

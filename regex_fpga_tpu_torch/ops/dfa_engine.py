@@ -11,6 +11,10 @@ pass 2 rescans each block from it (K1's full mode, ``dfa_chain``). It is
 exact for any automaton, including those the fast engine's Jacobi seams
 never settle (parity counters).
 ``DfaMatcher`` reaches it only when the fast engine reports non-convergence.
+Each group's stages record spans under a profiler
+(``utils.profiling.trace``): ``rf.engine.fallback.fns`` (pass 1),
+``rf.engine.fallback.combine`` and ``rf.engine.fallback.pass2`` (pass 2
+and its counts).
 
 The (NB, S) block functions grow with S (219 MB at 65,536 blocks and
 S = 836), so the blocks go through in groups of at most ``FN_GROUP_BYTES``
@@ -25,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import trace
 from .hopper_dfa import check_fn_range, dfa_block_fns, dfa_chain, dfa_fn_combine
 from .tables import DfaTables
 
@@ -143,15 +148,19 @@ def dfa_scan_blocked(
     cur = torch.full((1,), int(start), dtype=torch.int32, device=stream.device)
     for g0 in range(0, nb, group):
         cls_g = classes[g0 : g0 + group]
-        entry, cur = dfa_fn_combine(block_transition_functions(tables, cls_g),
-                                    cur)
+        with trace("rf.engine.fallback.fns"):
+            fns = block_transition_functions(tables, cls_g)
+        with trace("rf.engine.fallback.combine"):
+            entry, cur = dfa_fn_combine(fns, cur)
+        del fns  # pass 2 runs without the group's functions (up to 64 MiB)
         # pass 2: exact rescan of each block from its true entry state (K1's
         # full mode over the block-major class ids: its outputs are stored
         # block-major, so their transposes flatten to stream order)
-        _, visited, acc = dfa_chain(tables.table, tables.accept, cls_g.T,
-                                    entry, mode="full")
-        visited, acc = visited.T.reshape(-1), acc.T.reshape(-1)
-        counts += torch.bincount(visited[acc].long(), minlength=s)[:s]
+        with trace("rf.engine.fallback.pass2"):
+            _, visited, acc = dfa_chain(tables.table, tables.accept, cls_g.T,
+                                        entry, mode="full")
+            visited, acc = visited.T.reshape(-1), acc.T.reshape(-1)
+            counts += torch.bincount(visited[acc].long(), minlength=s)[:s]
         if collect_matches:
             masks.append(acc)
             states.append(visited)

@@ -121,7 +121,95 @@ def test_parity_takes_passes_and_the_fallback(tmp_path):
     passes = sum(k == PASS for k in kids)
     assert passes == config.max_iters + 1  # the guess, the rounds, the output
     fallback = [k for k in kids if k[0] == "rf.engine.fallback"]
-    assert fallback == [("rf.engine.fallback", (UPLOAD,))]
+    # the upload, the blocked scan's stages over the one whole 1,024-byte
+    # block, then the serial tail of 64 bytes
+    assert fallback == [("rf.engine.fallback",
+                         (UPLOAD,) + FALLBACK_STAGES + (("rf.engine.fallback.serial", ()),))]
+
+
+FALLBACK_STAGES = tuple((f"rf.engine.fallback.{s}", ()) for s in ("fns", "combine", "pass2"))
+
+
+def csv_tokenizer():
+    """The benchmark's RFC 4180 record pattern: quote parity never
+    resynchronizes, so K3 diverges on its records and count() scans the
+    stream again, ending on the exact fallback."""
+    from pathlib import Path
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                       / "csv-records-rfc4180.json").read_text())
+    cfg = EngineConfig(num_blocks=64, min_block_bytes=16, chunk_bytes=1 << 12,
+                       scan_backend="device")
+    return api.compile_tokenizer(conf["pat"], config=cfg, device="cpu")
+
+
+CSV = (b'r,u,b,4,2020-02-29,"a ""b"",\nc\nd\ne\nf, g\nh",0,1,2\n\n' * 60)[:2048]
+
+
+def test_rescan_once_per_diverged_stream(tmp_path):
+    """``rf.engine.rescan`` opens once for each stream of a count() call
+    whose K3 chunks diverged, around the whole stream's scan() (its K1 chunk,
+    that chunk's passes and its fallback), and never on a converging one:
+    the second stream holds no quote, and every guess of its lanes holds."""
+    tok = csv_tokenizer()
+    streams = [np.frombuffer(s, np.uint8)
+               for s in (CSV, b"x,y\n" * 512, CSV[100:] + CSV[:100])]
+    want = tok.count(streams)
+    got, events = _traced(lambda: tok.count(streams), tmp_path)
+    assert got == want
+    ((name, kids),) = _tree(events)
+    assert name == "rf.api.count"
+    assert [k[0] for k in kids] == ["rf.engine.kgram", "rf.engine.rescan",
+                                    "rf.engine.kgram", "rf.engine.kgram",
+                                    "rf.engine.rescan"]
+    # K3's guess and its rounds fail on the quoted streams (no output pass
+    # after the last); one pass on the other
+    assert kids[2] == KGRAM
+    assert [sum(k == PASS for k in kids[i][1]) for i in (0, 3)] == [
+        tok.config.max_iters] * 2
+    rescans = [k for k in kids if k[0] == "rf.engine.rescan"]
+    for _, inner in rescans:
+        ((k1, chunk),) = inner
+        assert k1 == "rf.engine.k1"
+        # the fallback, then its counts' read
+        assert [k[0] for k in chunk[-2:]] == ["rf.engine.fallback", "rf.device.readback"]
+        assert sum(k == PASS for k in chunk) == tok.config.max_iters + 1
+    gpt2 = api.compile_tokenizer(config=SMALL, device="cpu")
+    _, events = _traced(lambda: gpt2.count(TEXT), tmp_path)
+    assert "rf.engine.rescan" not in {e["name"] for e in events}
+
+
+def test_fallback_stages_nest_inside_the_fallback(tmp_path):
+    """Each stage span of the exact fallback lies inside its
+    ``rf.engine.fallback`` span, once a group of blocks, with no serial tail
+    on whole blocks; presplit() takes the same stages."""
+    tok = csv_tokenizer()
+    data = np.frombuffer(CSV, np.uint8)
+    _, events = _traced(lambda: tok.presplit(data), tmp_path)
+    falls = []
+
+    def walk(nodes):
+        for name, kids in nodes:
+            if name == "rf.engine.fallback":
+                falls.append(kids)
+            walk(kids)
+
+    walk(_tree(events))
+    assert falls == [(UPLOAD,) + FALLBACK_STAGES]
+    names = [e["name"] for e in events]
+    assert sum(n.startswith("rf.engine.fallback.") for n in names) == 3
+
+
+def test_spans_change_no_csv_result(tmp_path):
+    tok = csv_tokenizer()
+    data = np.frombuffer(CSV, np.uint8)
+    untraced = tok.count(data), tok.presplit(data), tok.scan(data).counts
+    traced, _ = _traced(lambda: (tok.count(data), tok.presplit(data),
+                                 tok.scan(data).counts), tmp_path)
+    assert traced[0] == untraced[0]
+    np.testing.assert_array_equal(traced[1], untraced[1])
+    np.testing.assert_array_equal(traced[2], untraced[2])
+    assert not tok.scan(data).metrics.converged
 
 
 def test_spans_change_no_result(tmp_path):
