@@ -308,9 +308,9 @@ def _as_streams(data) -> list[np.ndarray]:
 
 
 class _FallbackResult(NamedTuple):
-    counts: torch.Tensor      # (S,) int64 per-state match counts
-    match_mask: torch.Tensor  # (L,) bool: accept fired before byte i
-    states: torch.Tensor      # (L,) int32: state before byte i
+    counts: np.ndarray | None          # (S,) int64 per-state match counts
+    match_mask: torch.Tensor | None    # (L,) bool: accept fired before byte i
+    states: torch.Tensor | None        # (L,) int32: state before byte i
     final_state: int
     iterations: int = 0
 
@@ -616,9 +616,12 @@ class DfaMatcher:
         composed class count stays small: on each chunk's longest prefix of
         whole steps that its full lane count divides, then the k=1 counts
         engine over the rest (fewer than lanes x k bytes, padded with the
-        stall class) from the k-gram carry state. Where the k-gram engine
-        is off (more than ``KGRAM_MAX_STATES`` states), the engine router
-        may send the count to the host walker."""
+        stall class) from the k-gram carry state. A K3 part whose rounds
+        run out takes the exact fallback, counts only, on the bytes K3 was
+        given, from the chunk's entry state: every chunk before it settled,
+        so that state is exact. Where the k-gram engine is off (more than
+        ``KGRAM_MAX_STATES`` states), the engine router may send the count
+        to the host walker."""
         with trace("rf.api.count"):
             streams = _as_streams(data)
             if streams and self._kgram() is None and self._host_backend(
@@ -638,7 +641,6 @@ class DfaMatcher:
                 cb = self.config.chunk_bytes
                 cur = self.start
                 stream_total = 0
-                diverged = False
                 for off in range(0, len(stream), cb):
                     chunk = stream[off : off + cb]
                     steps = len(chunk) // kg.k
@@ -649,26 +651,24 @@ class DfaMatcher:
                         # pinned chunk's copy is only queued, as in _scan_chunk
                         with trace("rf.engine.kgram"):
                             with self._until_read():
+                                on_card = self._upload(chunk[:main_len],
+                                                       non_blocking=True)
                                 res = dfa_scan_kgram(
-                                    ta, self._upload(chunk[:main_len],
-                                                     non_blocking=True),
-                                    num_blocks=nb, start=cur,
+                                    ta, on_card, num_blocks=nb, start=cur,
                                     max_iters=self.config.max_iters, maps=maps,
                                 )
-                            if not res.converged:
-                                diverged = True
-                                break
-                            stream_total += int(res.total)
-                            cur = int(res.final_state)
+                            if res.converged:
+                                stream_total += int(res.total)
+                                cur = int(res.final_state)
+                            else:  # non-synchronizing automaton
+                                fb = self._exact_fallback(
+                                    on_card, cur, collect_matches=False)
+                                stream_total += int(fb.counts.sum())
+                                cur = fb.final_state
                     if main_len < len(chunk):
                         ch = self._scan_chunk(chunk[main_len:], cur, "counts")
                         stream_total += int(ch.counts.sum())
                         cur = ch.final_state
-                if diverged:  # non-synchronizing automaton: exact fallback
-                    # over the whole stream (partial totals discarded)
-                    with trace("rf.engine.rescan"):
-                        total += int(self.scan([stream]).counts.sum())
-                    continue
                 if self.include_final_match and bool(self._accept_eof[cur]):
                     stream_total += 1
                 total += stream_total
@@ -718,12 +718,9 @@ class DfaMatcher:
                     (None if res.counts is None else
                      self._unpad(res.counts, [cur], lead)[0]),
                     int(res.final_state), res.iterations, True)
-            fb = self._exact_fallback(raw[::-1] if reverse else raw, cur)
-            counts = None
-            if emit == "counts":
-                with trace("rf.device.readback"):
-                    counts = fb.counts.cpu().numpy().astype(np.int64)
-            return _Chunk(fb.match_mask, fb.states, counts, fb.final_state,
+            fb = self._exact_fallback(data, cur,
+                                      collect_matches=emit != "counts")
+            return _Chunk(fb.match_mask, fb.states, fb.counts, fb.final_state,
                           fb.iterations, False)
 
     def _scan_batch_chunk(self, chunk, rows, cur: np.ndarray):
@@ -748,8 +745,9 @@ class DfaMatcher:
         cur = cur.copy()
         for i, row in enumerate(rows):
             if len(row):
-                fb = self._exact_fallback(row, int(cur[i]))
-                counts[i] = fb.counts.cpu().numpy()
+                fb = self._exact_fallback(self._upload(row), int(cur[i]),
+                                          collect_matches=False)
+                counts[i] = fb.counts
                 cur[i] = fb.final_state
         return counts, cur, res.iterations, False
 
@@ -912,37 +910,56 @@ class DfaMatcher:
             iters, converged = max(iters, ch.iterations), converged and ch.converged
         return counts, iters, converged
 
-    def _exact_fallback(self, chunk_bytes: np.ndarray, start) -> _FallbackResult:
-        """Exact path for automata the fast engine does not settle, on the
-        matcher's device: the blocked composition scan over the chunk's
-        whole 1024-byte blocks, then the serial scan over the tail of fewer
-        than 1024 bytes."""
+    def _exact_fallback(self, data: torch.Tensor, start,
+                        collect_matches: bool = True) -> _FallbackResult:
+        """Exact path for automata the fast engine does not settle, over a
+        chunk's bytes ``data``, already on the matcher's device: the blocked
+        composition scan over its whole 1024-byte blocks, then the serial
+        scan over the tail of fewer than 1024 bytes, read back and walked
+        on the host tables. With ``collect_matches`` the answer is the mask
+        and the states, on the device; without, it is the counts, on the
+        host, which come back with the blocked scan's final state in one
+        read, and no mask or states are made."""
         with trace("rf.engine.fallback"):
             block = 1024
-            main = len(chunk_bytes) - len(chunk_bytes) % block
-            counts = torch.zeros(self.num_states, dtype=torch.int64,
-                                 device=self.device)
-            masks = [torch.zeros(0, dtype=torch.bool, device=self.device)]
-            states = [torch.zeros(0, dtype=torch.int32, device=self.device)]
+            main = len(data) - len(data) % block
+            counts = np.zeros(self.num_states, dtype=np.int64)
+            masks, states = [], []
             cur = int(start)
             if main:
-                res = dfa_scan_blocked(self.tables,
-                                       self._upload(chunk_bytes[:main]),
-                                       block_size=block, start=cur)
-                counts += res.counts
-                masks.append(res.match_mask)
-                states.append(res.states)
-                cur = int(res.final_state)
-            if main < len(chunk_bytes):
+                res = dfa_scan_blocked(self.tables, data[:main],
+                                       block_size=block, start=cur,
+                                       collect_matches=collect_matches)
+                if collect_matches:
+                    masks.append(res.match_mask)
+                    states.append(res.states)
+                    cur = int(res.final_state)
+                else:
+                    with trace("rf.device.readback"):
+                        host = torch.cat([res.counts.long(),
+                                          res.final_state.reshape(1).long()]
+                                         ).cpu().numpy()
+                    counts += host[:-1]
+                    cur = int(host[-1])
+            if main < len(data):
                 with trace("rf.engine.fallback.serial"):
-                    res = dfa_scan_serial(self.tables, chunk_bytes[main:],
-                                          start=cur)
-                counts += res.counts
-                masks.append(res.match_mask)
-                states.append(res.states)
+                    tab, cls, acc = map(torch.from_numpy, self._host_tables())
+                    res = dfa_scan_serial(
+                        dataclasses.replace(self.tables, table=tab,
+                                            class_of=cls, accept=acc),
+                        data[main:], start=cur)
                 cur = int(res.final_state)
-            return _FallbackResult(counts=counts, match_mask=torch.cat(masks),
-                                   states=torch.cat(states), final_state=cur)
+                if collect_matches:
+                    masks.append(res.match_mask.to(self.device))
+                    states.append(res.states.to(self.device))
+                else:
+                    counts += res.counts.numpy()
+            if not collect_matches:
+                return _FallbackResult(counts, None, None, cur)
+            # one piece is the answer itself: a cat would copy it
+            return _FallbackResult(
+                None, masks[0] if len(masks) == 1 else torch.cat(masks),
+                states[0] if len(states) == 1 else torch.cat(states), cur)
 
     # ------------------------------------------------------ span extraction
 

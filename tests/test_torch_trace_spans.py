@@ -121,10 +121,12 @@ def test_parity_takes_passes_and_the_fallback(tmp_path):
     passes = sum(k == PASS for k in kids)
     assert passes == config.max_iters + 1  # the guess, the rounds, the output
     fallback = [k for k in kids if k[0] == "rf.engine.fallback"]
-    # the upload, the blocked scan's stages over the one whole 1,024-byte
-    # block, then the serial tail of 64 bytes
+    # on the chunk's device bytes, no upload: the blocked scan's stages over
+    # the one whole 1,024-byte block, the read of its counts and final
+    # state, then the serial tail of 64 bytes
     assert fallback == [("rf.engine.fallback",
-                         (UPLOAD,) + FALLBACK_STAGES + (("rf.engine.fallback.serial", ()),))]
+                         FALLBACK_STAGES + (READBACK, ("rf.engine.fallback.serial", ())))]
+    assert sum(k == UPLOAD for k in kids) == 1
 
 
 FALLBACK_STAGES = tuple((f"rf.engine.fallback.{s}", ()) for s in ("fns", "combine", "pass2"))
@@ -132,8 +134,8 @@ FALLBACK_STAGES = tuple((f"rf.engine.fallback.{s}", ()) for s in ("fns", "combin
 
 def csv_tokenizer():
     """The benchmark's RFC 4180 record pattern: quote parity never
-    resynchronizes, so K3 diverges on its records and count() scans the
-    stream again, ending on the exact fallback."""
+    resynchronizes, so K3 diverges on its records and count() takes the
+    exact fallback on each such chunk."""
     from pathlib import Path
 
     conf = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
@@ -146,37 +148,35 @@ def csv_tokenizer():
 CSV = (b'r,u,b,4,2020-02-29,"a ""b"",\nc\nd\ne\nf, g\nh",0,1,2\n\n' * 60)[:2048]
 
 
-def test_rescan_once_per_diverged_stream(tmp_path):
-    """``rf.engine.rescan`` opens once for each stream of a count() call
-    whose K3 chunks diverged, around the whole stream's scan() (its K1 chunk,
-    that chunk's passes and its fallback), and never on a converging one:
-    the second stream holds no quote, and every guess of its lanes holds."""
+def test_diverged_chunk_falls_back_in_place(tmp_path):
+    """A count() chunk whose K3 rounds run out takes the exact fallback
+    inside its own ``rf.engine.kgram`` span, after its ``max_iters`` passes,
+    on the bytes K3 was given: the fallback holds the three stages and the
+    one read of its counts and final state, and no upload. No stream is
+    scanned again (no ``rf.engine.rescan``), so each chunk has one upload.
+    The second stream holds no quote, and every guess of its lanes holds."""
     tok = csv_tokenizer()
     streams = [np.frombuffer(s, np.uint8)
                for s in (CSV, b"x,y\n" * 512, CSV[100:] + CSV[:100])]
     want = tok.count(streams)
     got, events = _traced(lambda: tok.count(streams), tmp_path)
-    assert got == want
+    assert got == want == tok.scan(streams).total
     ((name, kids),) = _tree(events)
     assert name == "rf.api.count"
-    assert [k[0] for k in kids] == ["rf.engine.kgram", "rf.engine.rescan",
-                                    "rf.engine.kgram", "rf.engine.kgram",
-                                    "rf.engine.rescan"]
+    assert [k[0] for k in kids] == ["rf.engine.kgram"] * 3
+    assert kids[1] == KGRAM
     # K3's guess and its rounds fail on the quoted streams (no output pass
-    # after the last); one pass on the other
-    assert kids[2] == KGRAM
-    assert [sum(k == PASS for k in kids[i][1]) for i in (0, 3)] == [
-        tok.config.max_iters] * 2
-    rescans = [k for k in kids if k[0] == "rf.engine.rescan"]
-    for _, inner in rescans:
-        ((k1, chunk),) = inner
-        assert k1 == "rf.engine.k1"
-        # the fallback, then its counts' read
-        assert [k[0] for k in chunk[-2:]] == ["rf.engine.fallback", "rf.device.readback"]
-        assert sum(k == PASS for k in chunk) == tok.config.max_iters + 1
+    # after the last), then the fallback over the part's two whole blocks
+    fallback = ("rf.engine.fallback", FALLBACK_STAGES + (READBACK,))
+    for i in (0, 2):
+        assert kids[i][1] == ((UPLOAD,) + (PASS, READBACK) * tok.config.max_iters
+                              + (fallback,))
+    names = [e["name"] for e in events]
+    assert names.count("rf.device.upload") == 3
+    assert "rf.engine.rescan" not in names
     gpt2 = api.compile_tokenizer(config=SMALL, device="cpu")
     _, events = _traced(lambda: gpt2.count(TEXT), tmp_path)
-    assert "rf.engine.rescan" not in {e["name"] for e in events}
+    assert "rf.engine.fallback" not in {e["name"] for e in events}
 
 
 def test_fallback_stages_nest_inside_the_fallback(tmp_path):
@@ -195,7 +195,7 @@ def test_fallback_stages_nest_inside_the_fallback(tmp_path):
             walk(kids)
 
     walk(_tree(events))
-    assert falls == [(UPLOAD,) + FALLBACK_STAGES]
+    assert falls == [FALLBACK_STAGES]  # on the K1 chunk's device bytes
     names = [e["name"] for e in events]
     assert sum(n.startswith("rf.engine.fallback.") for n in names) == 3
 
