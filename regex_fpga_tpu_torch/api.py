@@ -14,6 +14,7 @@ The counterpart of ``regex_fpga_tpu/api.py``::
 
     lits = compile_literals([b"GET", b"POST"], device="cuda")
     per_pattern = lits.scan_patterns(data).pattern_counts
+    totals = lits.count_patterns(data)                  # (P,), folded on the card
 
     rules = compile_regex_set(patterns, strategy="lazy-device", device="cuda")
     per_rule = rules.scan([flow_a, flow_b]).rule_counts
@@ -691,7 +692,7 @@ class DfaMatcher:
         return counts
 
     def _scan_chunk(self, raw: np.ndarray, cur: int, emit: str,
-                    reverse: bool = False) -> _Chunk:
+                    reverse: bool = False, fold=None) -> _Chunk:
         """One chunk of a stream from state ``cur`` on the k=1 engine in
         ``emit`` mode (``dfa_scan_fast``), or on the exact path where it
         does not converge. A pinned chunk's copy is only queued: the scan's
@@ -700,28 +701,48 @@ class DfaMatcher:
         ids and the byte map, where the chain kernels map the raw bytes
         themselves, come from ``_chunk_ids``. The
         mask and states stay on the device; the pad's positions are dropped
-        from them, and its visits of the entry state from the counts."""
+        from them, and its visits of the entry state from the counts.
+        ``fold`` (counts mode) maps the chunk's counts, on the device and
+        without the pad's visits, to what the chunk returns as ``counts``
+        (int64, on the host): it rides in the verdict's read."""
         with trace("rf.engine.k1"):
             with self._until_read():
                 data = self._upload(raw, non_blocking=True)
                 if reverse:
                     data = torch.flip(data, (0,))
                 tables, ids, nb, lead, class_of = self._chunk_ids(data)
-                res = dfa_scan_fast(tables, ids, num_blocks=nb, start=cur,
-                                    max_iters=self.config.max_iters, emit=emit,
-                                    class_of=class_of)
+                res = dfa_scan_fast(
+                    tables, ids, num_blocks=nb, start=cur,
+                    max_iters=self.config.max_iters, emit=emit,
+                    class_of=class_of, fold=None if fold is None else
+                    lambda c: fold(self._unpad_device(c, cur, lead)))
             self._check_domain(res.domain_ok)
             if res.converged:
+                counts = res.counts
+                if counts is not None:
+                    counts = (self._unpad(counts, [cur], lead)[0] if fold is None
+                              else counts.numpy().astype(np.int64, copy=False))
                 return _Chunk(
                     None if res.match_mask is None else res.match_mask[lead:],
                     None if res.states is None else res.states[lead:],
-                    (None if res.counts is None else
-                     self._unpad(res.counts, [cur], lead)[0]),
-                    int(res.final_state), res.iterations, True)
+                    counts, int(res.final_state), res.iterations, True)
             fb = self._exact_fallback(data, cur,
                                       collect_matches=emit != "counts")
-            return _Chunk(fb.match_mask, fb.states, fb.counts, fb.final_state,
+            counts = fb.counts
+            if fold is not None:
+                counts = fold(torch.from_numpy(counts).to(self.device)).cpu().numpy()
+            return _Chunk(fb.match_mask, fb.states, counts, fb.final_state,
                           fb.iterations, False)
+
+    def _unpad_device(self, counts: torch.Tensor, cur: int, lead: int) -> torch.Tensor:
+        """A padded chunk's (..., S) counts on the device without the
+        ``lead`` visits of the entry state ``cur`` that its pad made (no
+        host read)."""
+        if not lead:
+            return counts
+        counts = counts.clone()
+        counts[..., cur] -= self.tables.accept[cur].to(counts.dtype) * lead
+        return counts
 
     def _scan_batch_chunk(self, chunk, rows, cur: np.ndarray):
         """One chunk of a batch on ``dfa_scan_fast_multi`` from the rows'
@@ -1725,15 +1746,70 @@ class LiteralSetMatcher(DfaMatcher):
     def __init__(self, ac, config: EngineConfig = DEFAULT_CONFIG, device=None):
         super().__init__(ac.dfa, config, device)
         self.ac = ac
+        # the output sets as (state, pattern) pairs on the device, for the
+        # fold of per-state counts into per-pattern counts
+        sizes = np.diff(ac.out_indptr)
+        self._out_states = torch.as_tensor(
+            np.repeat(np.arange(len(sizes), dtype=np.int32), sizes),
+            device=self.device)
+        self._out_patterns = torch.as_tensor(ac.out_indices.astype(np.int32),
+                                             device=self.device)
 
     @property
     def num_patterns(self) -> int:
         return len(self.ac.patterns)
 
+    def _fold(self, counts: torch.Tensor) -> torch.Tensor:
+        """Per-state counts (..., S) -> per-pattern counts (..., P) of the
+        same dtype and device: each state's count added to every pattern of
+        its output set (a gather over the output CSR and a scatter-add);
+        ``AhoCorasick.pattern_counts`` is the host's loop."""
+        with trace("rf.engine.pattern_fold"):
+            dim = counts.dim() - 1
+            out = counts.new_zeros((*counts.shape[:-1], self.num_patterns))
+            return out.index_add_(dim, self._out_patterns,
+                                  counts.index_select(dim, self._out_states))
+
     def scan_patterns(self, data) -> LiteralReport:
         rep = self.scan(data)
-        return LiteralReport(pattern_counts=self.ac.pattern_counts(rep.counts),
-                             report=rep)
+        counts = self._fold(torch.as_tensor(rep.counts, device=self.device))
+        return LiteralReport(pattern_counts=counts.cpu().numpy(), report=rep)
+
+    def count_patterns(self, data) -> np.ndarray:
+        """(P,) int64: the occurrences of every pattern in ``data`` (one
+        stream, or the sum over several), overlapping and nested ones
+        included, in pattern order; a duplicate pattern counts under each
+        of its ids. Equals ``scan_patterns(data).pattern_counts.sum(0)``.
+        Each chunk's per-state histogram stays on the device: K2's counts
+        are folded there and the pattern counts ride in the read that
+        carries the chunk's verdict and final state, so a chunk whose
+        speculation verifies makes one host wait. A scan that the engine
+        router sends to the host walker folds as ``scan_patterns`` does."""
+        with trace("rf.api.count_patterns"):
+            streams = _as_streams(data)
+            if streams and self._host_backend(
+                    len(streams), sum(len(s_) for s_ in streams)):
+                return self.scan_patterns(streams).pattern_counts.sum(0)
+            total = None  # the first chunk's counts, then the sum in place
+            cb = self.config.chunk_bytes
+            for stream in streams:
+                if len(stream) == 0:
+                    continue
+                cur = self.start
+                for off in range(0, len(stream), cb):
+                    ch = self._scan_chunk(stream[off : off + cb], cur, "counts",
+                                          fold=self._fold)
+                    if total is None:
+                        total = ch.counts
+                    else:
+                        total += ch.counts
+                    cur = ch.final_state
+                if self.include_final_match and bool(self._accept_eof[cur]):
+                    ptr = self.ac.out_indptr
+                    total[self.ac.out_indices[ptr[cur] : ptr[cur + 1]]] += 1
+            if total is None:
+                return np.zeros(self.num_patterns, dtype=np.int64)
+            return total
 
     def finditer(self, data, limit: int | None = None,
                  pos: int = 0, endpos: int | None = None):
@@ -1800,7 +1876,8 @@ def compile_literals(patterns, config: EngineConfig = DEFAULT_CONFIG,
                      device=None) -> LiteralSetMatcher:
     """Compile a set of literal byte strings (Aho-Corasick) into one dense
     DFA on the fast engines, with per-pattern occurrence counts."""
-    return LiteralSetMatcher(build_aho_corasick(patterns), config, device)
+    with trace("rf.compile.literals"):
+        return LiteralSetMatcher(build_aho_corasick(patterns), config, device)
 
 
 # ------------------------------------------------------------------ NFA

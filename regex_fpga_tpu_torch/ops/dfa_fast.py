@@ -223,15 +223,17 @@ def _jacobi(round_fn, out, verdict: _Verdict, lanes: _Lanes, max_iters: int):
 
 
 def _scan(tables: DfaTables, classes: torch.Tensor, lanes: _Lanes, emit: str,
-          max_iters: int, overlap: int, class_of=None):
+          max_iters: int, overlap: int, class_of=None, fold=None):
     """The k=1 engines over (L,) or (N, L) ``classes``, a block a lane
     (``lanes.per_stream`` blocks a stream): the speculation, the
     output pass in ``emit`` mode as the first round, and after a miss the
     Jacobi rounds on finals passes and the output pass again from their
     entries (``iterations``: 1 on the speculation path, else the rounds +
     1, as the JAX engine counts). With ``class_of`` every pass reads
-    ``classes`` as raw bytes and maps them itself. Returns (the output
-    pass's outputs, its verdict, converged, iterations, domain_ok)."""
+    ``classes`` as raw bytes and maps them itself; ``fold`` (counts mode)
+    maps each output pass's counts on the device to what rides in the
+    verdict's read in their place. Returns (the output pass's outputs, its
+    verdict, converged, iterations, domain_ok)."""
     if classes.shape[-1] % lanes.per_stream:
         raise ValueError("stream length must be divisible by num_blocks")
     blocks = classes.reshape(lanes.start.shape[0], -1)
@@ -247,7 +249,7 @@ def _scan(tables: DfaTables, classes: torch.Tensor, lanes: _Lanes, emit: str,
             out = dfa_chain_counts(table, accept, cls_seq, entries,
                                    blocks.shape[0] // lanes.per_stream,
                                    class_of=class_of)
-            return out, out[:1], out[1:]
+            return out, out[:1], out[1:] if fold is None else (fold(out[1]),)
         out = dfa_chain(table, accept, cls_seq, entries, emit,
                         class_of=class_of)
         if emit == "mask":
@@ -281,6 +283,7 @@ def dfa_scan_fast(
     overlap: int = 64,
     *,
     class_of: torch.Tensor | None = None,
+    fold=None,
 ) -> FastScanResult:
     """Scan a class stream (L,) whose length divides into ``num_blocks``.
 
@@ -291,13 +294,15 @@ def dfa_scan_fast(
     and ``domain_ok`` come back on the host. With ``class_of`` ((256,)
     uint8, the tables' byte-to-class map) ``classes`` holds the raw bytes
     (uint8) and every pass maps them itself, with the results of the scan
-    over ``class_of[classes]``."""
+    over ``class_of[classes]``. ``fold`` (counts mode) is a function of
+    the (S,) int32 counts on the device: its int32 result comes back as
+    ``counts`` instead, in the same read as the verdict."""
     if emit not in ("full", "mask", "counts"):
         raise ValueError(f"emit must be full, mask or counts, got {emit!r}")
     lanes = _Lanes(torch.full((num_blocks,), start, dtype=torch.int32,
                               device=classes.device), num_blocks)
     out, verdict, converged, it, ok = _scan(tables, classes, lanes, emit,
-                                            max_iters, overlap, class_of)
+                                            max_iters, overlap, class_of, fold)
     # (B, NB) block-major storage: .T.reshape(-1) is stream order, no copy
     return FastScanResult(
         final_state=torch.from_numpy(verdict.final_states.reshape(())),

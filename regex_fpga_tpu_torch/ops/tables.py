@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -127,11 +128,41 @@ def build_dfa_tables(table_256: np.ndarray, accept: np.ndarray,
             f"transition targets must be in [0, {s}); got "
             f"[{table_256.min()}, {table_256.max()}]"
         )
-    _, class_of = np.unique(table_256, axis=0, return_inverse=True)
-    # np.unique sorts rows; rebuild the table in class order
-    reps = np.zeros(class_of.max() + 1, dtype=np.int64)
-    reps[class_of] = np.arange(256)
+    class_of, reps = _byte_classes(table_256)
     return tables_from_numpy(table_256[reps], class_of, accept, s, device)
+
+
+def _byte_classes(table_256: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(class_of (256,), a byte of each class): the bytes whose columns of
+    ``table_256`` are equal share a class, and the classes are numbered in
+    the ascending lexicographic order of their rows, as
+    ``np.unique(table_256, axis=0)`` numbers them. The entries must lie in
+    [0, 2^32). Linear in S: each row is checksummed and held to the rows of
+    its checksum, then the distinct rows are sorted as big-endian bytes
+    (``np.unique(axis=0)`` compares rows entry by entry, which took minutes
+    on a million-state Aho-Corasick table)."""
+    rows = np.ascontiguousarray(table_256)
+    first: list[int] = []         # a byte of each distinct row, in first-seen order
+    by_sum: dict[int, list[int]] = {}
+    seen = np.empty(len(rows), dtype=np.int64)
+    for b, row in enumerate(rows):
+        same = by_sum.setdefault(zlib.crc32(row), [])
+        for r in same:
+            if np.array_equal(rows[first[r]], row):
+                seen[b] = r
+                break
+        else:
+            same.append(len(first))
+            seen[b] = len(first)
+            first.append(b)
+    reps = np.asarray(first, dtype=np.int64)
+    # unsigned big-endian bytes compare as the entries do, most significant first
+    keys = np.ascontiguousarray(rows[reps].astype(">u4"))
+    keys = keys.view(np.dtype((np.void, keys.itemsize * keys.shape[1]))).ravel()
+    order = np.argsort(keys, kind="stable")
+    rank = np.empty(len(reps), dtype=np.int64)
+    rank[order] = np.arange(len(reps))
+    return rank[seen], reps[order]
 
 
 def build_dfa_tables_from_csr(aut: CsrAutomaton, device=None) -> DfaTables:

@@ -96,3 +96,44 @@ def test_build_rejects_out_of_range_targets():
         tt.build_dfa_tables(bad, accept)
     with pytest.raises(ValueError, match="transition targets"):
         jt.build_dfa_tables(bad, accept)
+
+
+def _benchmark_automaton(name):
+    """The (256, S) table of a benchmark configuration's automaton, built
+    with the port's own functions, as the configuration's entry builds it."""
+    import json
+    from pathlib import Path
+
+    from regex_fpga_tpu_torch.models import build_aho_corasick as port_ac
+    from regex_fpga_tpu_torch.models import build_tokenizer_dfa as port_tokenizer
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                       / f"{name}.json").read_text(encoding="utf-8"))
+    if name == "jieba-dict-349k":  # every 40th word: 8,727 words, not the whole
+        return port_ac(conf["words"][::40]).dfa.table
+    return port_tokenizer(conf["pat"], **conf["port"]["kwargs"]).table
+
+
+@pytest.mark.parametrize("name", [
+    "random_small", "random_large", "random_few_rows", "tokenizer", "aho_corasick",
+    "gpt2-pretok-bytes", "cl100k-pretok-utf8", "csv-records-rfc4180", "jieba-dict-349k"])
+def test_byte_classes_are_np_unique_s(name):
+    """The linear grouping numbers the classes as ``np.unique(axis=0)``
+    does (ascending rows), and the table built on it is ``np.unique``'s rows."""
+    if name.startswith("random"):
+        rng = np.random.default_rng(len(name))
+        table = (random_dfa_table(rng, 40, 3)[0] if name == "random_few_rows"
+                 else rng.integers(0, 3, (256, 60 if name == "random_large" else 3)))
+        if name == "random_large":  # equal rows that differ only in late columns
+            table[:, :50] = 0
+    elif name in ("tokenizer", "aho_corasick"):
+        table = _automaton(name)[0]
+    else:
+        table = _benchmark_automaton(name)
+    rows, inverse = np.unique(table, axis=0, return_inverse=True)
+    class_of, reps = tt._byte_classes(table)
+    np.testing.assert_array_equal(class_of, inverse.reshape(-1))
+    np.testing.assert_array_equal(table[reps], rows)
+    built = tt.build_dfa_tables(table, np.zeros(table.shape[1], bool))
+    np.testing.assert_array_equal(built.table.numpy(), rows)
+    np.testing.assert_array_equal(built.class_of.numpy(), inverse.reshape(-1))

@@ -261,6 +261,53 @@ def test_compile_span_wraps_the_build(tmp_path):
     assert tok.count(TEXT) == untraced.count(TEXT)
 
 
+LITERALS = [b"Hello", b"world", b"test", b"ing", b"the", b"er", b"e", b"the"]
+
+
+def test_literals_compile_span_wraps_the_build(tmp_path):
+    """``rf.compile.literals`` holds the automaton's build and its tables'."""
+    lits, events = _traced(lambda: api.compile_literals(LITERALS, config=SMALL,
+                                                        device="cpu"), tmp_path)
+    assert _tree(events) == (("rf.compile.literals", ()),)
+    untraced = api.compile_literals(LITERALS, config=SMALL, device="cpu")
+    np.testing.assert_array_equal(lits.count_patterns(TEXT), untraced.count_patterns(TEXT))
+
+
+def test_count_patterns_span_tree(tmp_path):
+    """One ``rf.engine.pattern_fold`` a chunk, inside its chain pass: the
+    fold is queued before the verdict's read, which carries its counts."""
+    lits = api.compile_literals(LITERALS, config=SMALL, device="cpu")
+    want = lits.count_patterns(TEXT)
+    got, events = _traced(lambda: lits.count_patterns(TEXT), tmp_path)
+    np.testing.assert_array_equal(got, want)
+    fold = ("rf.engine.pass", (("rf.engine.pattern_fold", ()),))
+    chunk = ("rf.engine.k1", (UPLOAD, fold, READBACK))
+    # 34,800 bytes: two whole 16-KiB chunks and a padded tail
+    assert _tree(events) == (("rf.api.count_patterns", (chunk,) * 3),)
+
+
+def test_count_patterns_reads_once_a_chunk(monkeypatch):
+    """Where the speculation verifies, a call of one chunk makes one host
+    read: the verdict, with the final state and the pattern counts."""
+    lits = api.compile_literals(LITERALS, config=SMALL, device="cpu")
+    lits.count_patterns(TEXT)  # the table's range is read once, at first use
+    reads = []
+    real_cpu = torch.Tensor.cpu
+
+    def cpu(self, *args, **kw):
+        reads.append(tuple(self.shape))
+        return real_cpu(self, *args, **kw)
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    for data in (TEXT[:16_384], TEXT[:10_001]):
+        reads.clear()
+        got = lits.count_patterns(data)
+        # misses, the final state, its range, the pattern counts
+        assert reads == [(1 + 1 + 2 + len(LITERALS),)]
+        monkeypatch.setattr(torch.Tensor, "cpu", real_cpu)
+        np.testing.assert_array_equal(got, lits.scan_patterns(data).pattern_counts[0])
+        monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+
+
 @pytest.mark.parametrize("mapped", [False, True])
 @pytest.mark.parametrize("table", ["global", "shared uint16", "shared uint32"])
 def test_global_table_span_follows_the_route(table, mapped, monkeypatch, tmp_path):
